@@ -1,0 +1,15 @@
+"""The object-centric-embedding U-Net, its geometry and its weight bridge."""
+
+from .convert import load_checkpoint, state_dict_from_jax_params
+from .geometry import UNetGeometry, compute_geometry
+from .unet import UNet, tta_embeddings, unet_from_config
+
+__all__ = [
+    "UNet",
+    "UNetGeometry",
+    "compute_geometry",
+    "load_checkpoint",
+    "state_dict_from_jax_params",
+    "tta_embeddings",
+    "unet_from_config",
+]

@@ -1,0 +1,92 @@
+"""The port and chip_smoke.py import neither JAX nor the JAX package, and
+the port runs end to end on the CPU through its API and its command line."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_SCRIPT = r"""
+import json, sys
+import chip_smoke
+import cellulus_tpu_torch
+
+model = dict(num_fmaps=4, fmap_inc_factor=2, features_in_last_layer=8,
+             downsampling_factors=[[2, 2]])
+settings = dict(device="cpu", crop_size=[44, 44], num_infer_iterations=2,
+                mean_shift_max_iterations=20)
+container = chip_smoke.write_blob_container("data.zarr", 1, 48, seed=1, dtype="uint8")
+chip_smoke.save_random_checkpoint("w.pth", seed=0, **model)
+config = chip_smoke.infer_config(container, "w.pth", model, **settings)
+stage_seconds = {}
+results = cellulus_tpu_torch.infer(config, stage_seconds)
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+    or m == "cellulus_tpu" or m.startswith("cellulus_tpu.")
+)
+
+# the same run as a TOML for the command line
+lines = ["object_size = %d" % chip_smoke.OBJECT_SIZE, "[model_config]"]
+lines += ["%s = %s" % (k, json.dumps(v)) for k, v in model.items()]
+lines += ['checkpoint = "w.pth"', "[inference_config]"]
+lines += ["%s = %s" % (k, json.dumps(v)) for k, v in settings.items()]
+ic = config.inference_config
+for stage in ("", "prediction_", "detection_", "segmentation_", "evaluation_"):
+    dc = getattr(ic, stage + "dataset_config")
+    lines += ["[inference_config.%sdataset_config]" % stage,
+              'container_path = "%s"' % dc.container_path,
+              'dataset_name = "%s"' % dc.dataset_name]
+    if dc.secondary_dataset_name:
+        lines.append('secondary_dataset_name = "%s"' % dc.secondary_dataset_name)
+open("infer.toml", "w").write("\n".join(lines) + "\n")
+print("RESULT " + json.dumps({"bad": bad, "stages": sorted(stage_seconds),
+                              "F1": results[0]["F1"]}))
+"""
+
+
+def _run(args, cwd):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout
+
+
+def test_port_runs_without_jax(tmp_path):
+    out = _run(["-c", _SCRIPT], tmp_path)
+    line = [l for l in out.splitlines() if l.startswith("RESULT ")][-1]
+    result = json.loads(line[len("RESULT "):])
+    assert result["bad"] == []
+    assert result["stages"] == ["detect", "evaluate", "predict", "segment"]
+    assert 0.0 <= result["F1"] <= 1.0
+
+    # python -m cellulus_tpu_torch infer <toml> reruns it from the TOML
+    out = _run(["-m", "cellulus_tpu_torch", "infer", "infer.toml"], tmp_path)
+    assert "[perf] segment" in out and "F1 for dataset" in out
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_jax_imports_in_the_sources():
+    files = sorted((REPO / "cellulus_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    offending = [
+        (str(f.relative_to(REPO)), name)
+        for f in files
+        for name in _imported_modules(f)
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "cellulus_tpu")
+    ]
+    assert offending == []
