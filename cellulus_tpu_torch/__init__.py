@@ -7,12 +7,20 @@ the CPU; on the card the hot operations are hand-written CUDA kernels
 (``csrc/``), on the CPU their plain PyTorch versions.
 
     import cellulus_tpu_torch
+    cellulus_tpu_torch.train(experiment_config)   # writes models/*.pth
     cellulus_tpu_torch.infer(experiment_config)
 """
 
 import importlib
 
 __version__ = "0.1.0"
+
+
+def train(experiment_config, step_times=None):
+    # imported on first use; the import rebinds this attribute to the
+    # module, which is callable (see train.py)
+    mod = importlib.import_module(".train", __name__)
+    return mod.train(experiment_config, step_times)
 
 
 def infer(experiment_config, stage_seconds=None):
@@ -22,4 +30,4 @@ def infer(experiment_config, stage_seconds=None):
     return mod.infer(experiment_config, stage_seconds)
 
 
-__all__ = ["infer", "__version__"]
+__all__ = ["infer", "train", "__version__"]

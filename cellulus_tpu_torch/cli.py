@@ -1,4 +1,4 @@
-"""Command line: ``python -m cellulus_tpu_torch infer <config.toml>``."""
+"""Command line: ``python -m cellulus_tpu_torch {train,infer} <config.toml>``."""
 
 from __future__ import annotations
 
@@ -10,11 +10,19 @@ from .configs import ExperimentConfig
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="cellulus_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("infer", help="run predict -> detect -> segment -> evaluate")
-    p.add_argument("config_file")
+    for name, help_text in (
+        ("train", "train the model; writes models/*.pth"),
+        ("infer", "run predict -> detect -> segment -> evaluate"),
+    ):
+        sub.add_parser(name, help=help_text).add_argument("config_file")
     args = parser.parse_args(argv)
     print(f"Reading config from {args.config_file}")
     config = ExperimentConfig.from_toml(args.config_file)
-    from .infer import infer
+    if args.command == "train":
+        from .train import train
 
-    infer(config)
+        train(config)
+    else:
+        from .infer import infer
+
+        infer(config)

@@ -6,9 +6,22 @@ down; on the way up nearest upsampling, a center crop of the skip by
 ``(size - target) // 2``, the concat ``[skip, up]`` and a conv pass; then the
 head ``1x1 -> ReLU -> 1x1`` with no final activation.
 
-Activations are channels-last (NHWC) throughout, and every conv pass runs
-through :func:`~cellulus_tpu_torch.ops.conv_pass.conv_pass_2d` (the
-hand-written kernel on the card). Parameters are stored in funlib's layout
+Activations are channels-last (NHWC) throughout. ``forward`` takes one of
+two paths, which compute the same function:
+
+- inference (grad mode off, or nothing requires a gradient): every conv
+  pass runs through :func:`~cellulus_tpu_torch.ops.conv_pass.conv_pass_2d`
+  (kernel K1 on the card), which defines no gradient;
+- training: each conv is its own differentiable op, the 3x3 ones
+  :class:`~cellulus_tpu_torch.ops.conv_vjp.Conv3x3Valid` (filter gradient
+  by kernel K2 on the card), the 1x1 ones channel matmuls. As in the JAX
+  package's ``_conv`` (``cellulus_tpu/models/unet.py:199-226``), each conv
+  output is in the compute dtype, then ``+ b`` in the compute dtype, then
+  ReLU. In float32 the two paths agree to float rounding; in bfloat16 K1
+  adds the bias before its one rounding, so they differ by bf16 roundings
+  carried through the network.
+
+Parameters are stored in funlib's layout
 and naming (``backbone.l_conv.<l>.conv_pass.<2i>``,
 ``backbone.r_conv.0.<l>.conv_pass.<2i>``, ``head.<0|2>``), so reference
 ``.pth`` checkpoints load with ``load_state_dict(strict=True)``.
@@ -16,12 +29,15 @@ and naming (``backbone.l_conv.<l>.conv_pass.<2i>``,
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.conv_pass import conv_pass_2d
+from ..ops.conv_vjp import conv3x3_valid
 
 PASS_KERNELS = (3, 1, 1, 3)
 
@@ -43,8 +59,17 @@ class ConvPass(nn.Module):
             for i, conv in enumerate(convs)
         }
 
-    def forward(self, x: torch.Tensor, compute_dtype) -> torch.Tensor:
-        return conv_pass_2d(x, self.pass_params(), compute_dtype)
+    def forward(self, x: torch.Tensor, compute_dtype, fused: bool) -> torch.Tensor:
+        if fused:
+            return conv_pass_2d(x, self.pass_params(), compute_dtype)
+        for conv in self.conv_pass[::2]:
+            if conv.kernel_size == (3, 3):
+                w = conv.weight.to(compute_dtype)
+                x = conv3x3_valid(x.to(compute_dtype), w) + conv.bias.to(compute_dtype)
+            else:
+                x = _conv1x1(x, conv, compute_dtype)
+            x = torch.relu(x)
+        return x
 
 
 class Backbone(nn.Module):
@@ -64,11 +89,10 @@ class Backbone(nn.Module):
 
 
 def _max_pool(x: torch.Tensor, factor: Sequence[int]) -> torch.Tensor:
-    """VALID max-pool of NHWC ``x`` (odd extents floor)."""
-    fy, fx = factor
-    B, H, W, C = x.shape
-    x = x[:, : H // fy * fy, : W // fx * fx]
-    return x.reshape(B, H // fy, fy, W // fx, fx, C).amax(dim=(2, 4))
+    """VALID max-pool of NHWC ``x`` (odd extents floor); the gradient goes
+    to the first maximum of each window, as XLA's does."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), tuple(factor), tuple(factor))
+    return y.permute(0, 2, 3, 1)
 
 
 def _upsample_nearest(x: torch.Tensor, factor: Sequence[int]) -> torch.Tensor:
@@ -84,7 +108,7 @@ def _center_crop(x: torch.Tensor, target: Sequence[int]) -> torch.Tensor:
     return x[:, oy : oy + th, ox : ox + tw]
 
 
-def _head_conv(x: torch.Tensor, conv: nn.Conv2d, compute_dtype) -> torch.Tensor:
+def _conv1x1(x: torch.Tensor, conv: nn.Conv2d, compute_dtype) -> torch.Tensor:
     """A 1x1 conv of NHWC ``x`` as a channel matmul: compute-dtype inputs
     and weights, f32 accumulation, compute-dtype output plus bias."""
     w = conv.weight[:, :, 0, 0].to(compute_dtype).float()
@@ -130,20 +154,82 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
         if x.dim() != 4:
             raise ValueError(f"expected (B, H, W, C) input, got shape {tuple(x.shape)}")
+        # K1 defines no gradient: it runs only where none has to flow
+        fused = not torch.is_grad_enabled() or not (
+            x.requires_grad or any(p.requires_grad for p in self.parameters())
+        )
         bb = self.backbone
         skips = []
         for level in range(self.num_levels - 1):
-            x = bb.l_conv[level](x, compute_dtype)
+            x = bb.l_conv[level](x, compute_dtype, fused)
             skips.append(x)
             x = _max_pool(x, self.downsampling_factors[level])
-        x = bb.l_conv[self.num_levels - 1](x, compute_dtype)
+        x = bb.l_conv[self.num_levels - 1](x, compute_dtype, fused)
         for level in reversed(range(self.num_levels - 1)):
             x = _upsample_nearest(x, self.downsampling_factors[level])
             skip = _center_crop(skips[level], x.shape[1:3])
             x = torch.cat([skip, x], dim=-1)
-            x = bb.r_conv[0][level](x, compute_dtype)
-        x = torch.relu(_head_conv(x, self.head[0], compute_dtype))
-        return _head_conv(x, self.head[2], compute_dtype).float()
+            x = bb.r_conv[0][level](x, compute_dtype, fused)
+        x = torch.relu(_conv1x1(x, self.head[0], compute_dtype))
+        return _conv1x1(x, self.head[2], compute_dtype).float()
+
+
+def init_unet_(model: UNet, scheme: str, generator: torch.Generator) -> UNet:
+    """Re-initialize every conv in place, drawing from ``generator``.
+
+    The two schemes of ``cellulus_tpu/models/unet.py:_init_conv``:
+    ``"kaiming_normal"`` draws weights from ``N(0, 2 / fan_in)`` (the
+    reference's re-init for ``initialize=True``), ``"torch_default"`` from
+    ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``; biases draw from that uniform in
+    both. The stream is torch's, not JAX's: parity tests carry weights
+    across with ``state_dict_from_jax_params`` instead.
+    """
+    if scheme not in ("kaiming_normal", "torch_default"):
+        raise ValueError(f"unknown init scheme {scheme!r}")
+    with torch.no_grad():
+        for m in model.modules():
+            if not isinstance(m, nn.Conv2d):
+                continue
+            fan_in = m.weight[0].numel()
+            bound = 1.0 / math.sqrt(fan_in)
+            w = torch.empty(m.weight.shape, dtype=torch.float32)
+            if scheme == "kaiming_normal":
+                w.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+            else:
+                w.uniform_(-bound, bound, generator=generator)
+            b = torch.empty(m.bias.shape, dtype=torch.float32).uniform_(
+                -bound, bound, generator=generator
+            )
+            m.weight.copy_(w)
+            m.bias.copy_(b)
+    return model
+
+
+def select_and_add_coordinates(
+    outputs: torch.Tensor, coordinates: torch.Tensor
+) -> torch.Tensor:
+    """Gather offsets at pixel coordinates and add the coordinate.
+
+    Args:
+        outputs: ``(B, H, W, D)`` predicted offsets (channels-last).
+        coordinates: ``(B, P, D)`` integer coordinates, x-first
+            (``[..., 0]`` = x/column, ``[..., 1]`` = y/row), as in
+            ``cellulus_tpu/models/unet.py:select_and_add_coordinates``.
+
+    Returns:
+        Absolute embeddings ``(B, P, D)``.
+    """
+    B, D = outputs.shape[0], outputs.shape[-1]
+    spatial = outputs.shape[1:-1]
+    flat = outputs.reshape(B, -1, D)
+    # row-major flat index: ((z * H) + y) * W + x
+    idx = torch.zeros(coordinates.shape[:-1], dtype=torch.long, device=outputs.device)
+    stride = 1
+    for d in range(len(spatial)):
+        idx = idx + coordinates[..., d].long() * stride
+        stride *= spatial[len(spatial) - 1 - d]
+    gathered = torch.gather(flat, 1, idx[..., None].expand(*idx.shape, D))
+    return gathered + coordinates.to(gathered.dtype)
 
 
 def unet_from_config(model_config, in_channels: int, num_spatial_dims: int) -> UNet:

@@ -1,5 +1,8 @@
 """Fused [3,1,1,3] U-Net conv pass (2D, inference path).
 
+It defines no gradient: both versions raise when a gradient would have to
+flow through them (grad mode on and ``x`` or a weight requiring one).
+
 One conv pass is conv3x3 -> ReLU -> conv1x1 -> ReLU -> conv1x1 -> ReLU ->
 conv3x3 -> ReLU, all VALID, every stage with the pass's output width; f32
 accumulation, and each intermediate stored in the compute dtype.
@@ -37,6 +40,15 @@ _SIGNATURES = {
 
 def _checked_args(x, pass_params, compute_dtype):
     """Validate shapes and types; return ``(weights, biases)`` lists."""
+    if torch.is_grad_enabled() and (
+        x.requires_grad
+        or any(t.requires_grad for conv in pass_params.values() for t in conv.values())
+    ):
+        raise RuntimeError(
+            "conv_pass_2d is inference-only: it defines no gradient. Call it "
+            "under torch.no_grad(), or use UNet's training path (per-conv "
+            "autograd with the K2 filter gradient)"
+        )
     if compute_dtype not in _DTYPE_CODES:
         raise ValueError(
             f"conv_pass_2d computes in float32 or bfloat16, not {compute_dtype}"

@@ -17,20 +17,12 @@ import numpy as np
 import torch
 
 from .configs import InferenceConfig
+from .datasets import normalization_factor_for
 from .io import DatasetMetaData, zarr
 from .io.meta_data import spatial_attrs
 from .io.regions import read_reflect_region
 from .models import UNet, compute_geometry, tta_embeddings
-
-
-def normalization_factor_for(dtype: np.dtype) -> float:
-    """gp.Normalize default: scale integers to [0, 1], floats pass."""
-    dtype = np.dtype(dtype)
-    if dtype.kind in "ui":
-        return 1.0 / float(np.iinfo(dtype).max)
-    if dtype.kind == "f":
-        return 1.0
-    raise ValueError(f"cannot derive a normalization factor for dtype {dtype}")
+from .utils.device import seeded_generator
 
 
 def tile_origins(extent: int, tile: int) -> List[int]:
@@ -41,13 +33,6 @@ def tile_origins(extent: int, tile: int) -> List[int]:
     origins = list(range(0, extent - tile, tile))
     origins.append(extent - tile)
     return origins
-
-
-def sample_generator(seed: int, sample: int, device: torch.device) -> torch.Generator:
-    state = np.random.SeedSequence([int(seed), int(sample)]).generate_state(1, np.uint64)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(state[0]))
-    return gen
 
 
 def predict_sample(
@@ -73,7 +58,7 @@ def predict_sample(
     origins = list(itertools.product(
         *[tile_origins(max(s, o), o) for s, o in zip(spatial, out_tile)]
     ))
-    gen = sample_generator(inference_config.seed, sample_seed, device)
+    gen = seeded_generator(device, inference_config.seed, sample_seed)
     tb = max(1, int(inference_config.tile_batch_size))
     result = np.zeros((D + 1, *spatial), dtype=np.float32)
 

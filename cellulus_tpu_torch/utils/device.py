@@ -7,6 +7,7 @@ silently on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -30,3 +31,13 @@ def compute_dtype_for(precision: str) -> torch.dtype:
     if precision == "float32":
         return torch.float32
     raise ValueError(f"precision must be 'float32' or 'bfloat16', got {precision!r}")
+
+
+def seeded_generator(device, *entropy: int) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from the integers
+    ``entropy`` (a ``SeedSequence`` hash, so ``(s, 1)`` and ``(s + 1, 0)``
+    give unrelated streams)."""
+    state = np.random.SeedSequence([int(e) for e in entropy]).generate_state(1, np.uint64)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state[0]))
+    return gen

@@ -6,18 +6,29 @@ Phases, each failing the run (non-zero exit) if it fails:
 
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. the build: every kernel of ``cellulus_tpu_torch/csrc`` built by ``nvcc``
-   for ``sm_90a``, timed;
+   for ``sm_90a``, all at once, timed;
 3. K1, the fused conv pass: the kernel against its plain version at the
    three pass shapes of the full-width 2D model's tile batch, in float32
    (TF32 off) and bfloat16, with timings;
-4. K3, the mean-shift ball statistics: the kernel against its plain version
+4. K2, the 3x3 filter gradient: the kernel against its plain version at the
+   six dw shapes of the full-width train step, float32 and bfloat16, with
+   its plain, cuDNN (``conv2d_weight``) and bound times;
+5. K3, the mean-shift ball statistics: the kernel against its plain version
    on random points and on points lying exactly on the ball boundary;
-5. the main path: ``cellulus_tpu_torch.infer`` with the default inference
-   settings, on a synthetic 2-sample 512x512 uint16 container and seeded
-   random weights at the full width of ``examples/2d``, through predict ->
-   detect -> segment -> evaluate; every kernel must have launched;
-6. the kernels line (JSON), then the last line
-   ``{"ok": true, "device": {...}}``.
+6. reference checks: the full-width U-Net on the card against the CPU
+   (forward, and every gradient of the training path), mean-shift labels,
+   and ``conv_pass_2d`` refusing to run under autograd;
+7. the infer main path: ``cellulus_tpu_torch.infer`` with the default
+   inference settings, on a synthetic 2-sample 512x512 uint16 container and
+   seeded random weights at the full width of ``examples/2d``, through
+   predict -> detect -> segment -> evaluate; K1 and K3 must have launched;
+8. the train main path: ``cellulus_tpu_torch.train`` at the full width of
+   ``examples/2d/train.toml`` (bf16, elastic on, device pairs) for 20 steps,
+   K2 launched 6 times a step, a resume, 3 float32 steps, then infer on the
+   trained checkpoint;
+9. learn: a small recipe trains 400 steps and must beat its step-0 F1;
+10. the kernels line (JSON), then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Needs CUDA: without it the script exits non-zero and prints no result.
 Imports nothing of JAX or of the JAX package.
@@ -25,6 +36,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -41,6 +53,7 @@ from cellulus_tpu_torch.configs import ExperimentConfig
 from cellulus_tpu_torch.io import zarr
 from cellulus_tpu_torch.models import UNet, compute_geometry
 from cellulus_tpu_torch.ops.ball_stats import ball_stats, ball_stats_plain, point_set
+from cellulus_tpu_torch.ops.conv_dw import conv3x3_dw, conv3x3_dw_plain
 from cellulus_tpu_torch.ops.conv_pass import conv_pass_2d, conv_pass_2d_plain
 from cellulus_tpu_torch.ops.mean_shift import mean_shift_fit_predict
 from cellulus_tpu_torch.utils import kernels
@@ -57,6 +70,8 @@ MODEL = dict(num_fmaps=64, fmap_inc_factor=3, features_in_last_layer=64,
 CROP = 252
 TILE_BATCH = 4
 NUM_INFER_ITERATIONS = 16
+TRAIN_BATCH = 8
+DEVICE = "cuda:0"
 OBJECT_SIZE = 40
 IMAGE_SIZE = 512
 
@@ -65,9 +80,9 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def make_blobs(num_samples, size, seed, dtype=np.uint16, num_blobs=40):
+def make_blobs(num_samples, size, seed, dtype=np.uint16, num_blobs=40, radius=(0.025, 0.045)):
     """Bright disks on a dark noisy background: ``(raw (s, 1, H, W),
-    labels (s, 1, H, W) uint16)``."""
+    labels (s, 1, H, W) uint16)``; radii are ``radius`` times ``size``."""
     rng = np.random.default_rng(seed)
     raw = np.zeros((num_samples, 1, size, size), np.float32)
     labels = np.zeros((num_samples, 1, size, size), np.uint16)
@@ -75,15 +90,15 @@ def make_blobs(num_samples, size, seed, dtype=np.uint16, num_blobs=40):
     for s in range(num_samples):
         next_id = 1
         for _ in range(num_blobs):
-            radius = rng.uniform(0.025, 0.045) * size
-            cy, cx = rng.uniform(radius, size - radius, size=2)
+            r = rng.uniform(radius[0] * size, radius[1] * size)
+            cy, cx = rng.uniform(r, size - r, size=2)
             dist2 = (yy - cy) ** 2 + (xx - cx) ** 2
-            mask = dist2 < radius**2
+            mask = dist2 < r**2
             if (labels[s, 0][mask] != 0).any():
                 continue
             labels[s, 0][mask] = next_id
             raw[s, 0][mask] = rng.uniform(0.6, 1.0) * np.exp(
-                -dist2[mask] / (2 * (radius / 1.5) ** 2)
+                -dist2[mask] / (2 * (r / 1.5) ** 2)
             )
             next_id += 1
         raw[s, 0] += rng.normal(0, 0.02, (size, size)).clip(0)
@@ -91,8 +106,8 @@ def make_blobs(num_samples, size, seed, dtype=np.uint16, num_blobs=40):
     return (raw.clip(0, 1) * scale).astype(dtype), labels
 
 
-def write_blob_container(path, num_samples, size, seed, dtype=np.uint16):
-    raw, labels = make_blobs(num_samples, size, seed, dtype)
+def write_blob_container(path, num_samples, size, seed, dtype=np.uint16, **blobs):
+    raw, labels = make_blobs(num_samples, size, seed, dtype, **blobs)
     f = zarr.open(path, "a")
     for name, data in (("raw", raw), ("groundtruth", labels)):
         f[name] = data
@@ -133,6 +148,19 @@ def infer_config(container, checkpoint, model, **inference):
             **inference,
         },
     })
+
+
+@contextlib.contextmanager
+def logged(path):
+    """Send the port's per-iteration prints to ``path``; on an error print
+    the tail of the log before it propagates."""
+    try:
+        with open(path, "a") as f, contextlib.redirect_stdout(f):
+            yield
+    except BaseException:
+        with open(path) as f:
+            sys.stdout.write("".join(f.readlines()[-30:]))
+        raise
 
 
 def cuda_ms(fn, reps=3):
@@ -260,6 +288,69 @@ def phase_conv_pass(device):
     return total
 
 
+def dw_shapes(batch):
+    """``(name, x shape, g shape)`` of every 3x3 filter gradient of a train
+    step: the first and last conv of each pass."""
+    shapes = []
+    for name, (B, H, W, c_in), c in pass_shapes(batch):
+        shapes.append((f"{name} c0", (B, H, W, c_in), (B, H - 2, W - 2, c)))
+        shapes.append((f"{name} c3", (B, H - 2, W - 2, c), (B, H - 4, W - 4, c)))
+    return shapes
+
+
+def phase_conv_dw(device):
+    """K2 against its plain version at the train step's six dw shapes."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                 "max_abs_err": 0.0, "flops": 0.0, "nbytes": 0.0}
+        for name, xs, gs in dw_shapes(TRAIN_BATCH):
+            x = torch.randn(xs, generator=gen, device=device).to(dtype)
+            g = torch.randn(gs, generator=gen, device=device).to(dtype)
+            got = conv3x3_dw(x, g)
+            ref = conv3x3_dw_plain(x, g)
+            torch.cuda.synchronize()
+            err = (got - ref).abs()
+            max_err, scale = float(err.max()), float(ref.abs().max())
+            if dtype == torch.float32:
+                ok = bool((err <= 1e-4 * ref.abs() + 1e-5 * scale).all())
+                tol_text = "rtol 1e-4, atol 1e-5*max|ref|"
+            else:
+                ok = max_err <= 2e-2 * scale
+                tol_text = f"atol 2e-2*max|ref| = {2e-2 * scale:.3g}"
+            if not ok or not torch.isfinite(got).all():
+                fail(f"conv3x3_dw {name} {dtype}: max abs err {max_err:.3g} ({tol_text})")
+            del got, ref, err
+            B, H, W, c_in = xs
+            c_out = gs[-1]
+            w_shape = (c_out, c_in, 3, 3)
+            x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            ms = cuda_ms(lambda: conv3x3_dw(x, g))
+            plain_ms = cuda_ms(lambda: conv3x3_dw_plain(x, g))
+            library_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(x_nchw, w_shape, g_nchw))
+            flops = 2 * B * (H - 2) * (W - 2) * 9 * c_in * c_out
+            nbytes = x.element_size() * (x.numel() + g.numel()) + 4 * 9 * c_in * c_out
+            bound_ms = 1e3 * max(flops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S)
+            print(f"[K2] {name:9s} {str(dtype):14s} x{tuple(xs)} g{tuple(gs)}: "
+                  f"max_abs_err {max_err:.3g} ({tol_text}); kernel {ms:.3f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+                  f"cuDNN {library_ms:.3f} ms, bound {bound_ms:.3f} ms")
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                           ("bound_ms", bound_ms), ("flops", flops), ("nbytes", nbytes)):
+                total[key] += v
+            total["max_abs_err"] = max(total["max_abs_err"], max_err)
+            del x, g, x_nchw, g_nchw
+            torch.cuda.empty_cache()
+        by_ops = total.pop("flops") / PEAK_OPS[dtype] >= total.pop("nbytes") / HBM_BYTES_PER_S
+        total["bound_by"] = "operations" if by_ops else "bytes"
+        print(f"[K2] per train step, {dtype}: kernel {total['ms']:.3f} ms, plain "
+              f"{total['plain_ms']:.3f} ms, cuDNN {total['library_ms']:.3f} ms, bound "
+              f"{total['bound_ms']:.3f} ms ({total['bound_by']})")
+        out[dtype] = total
+    return out
+
+
 def phase_ball_stats(device):
     """K3 against its plain version; counts exact except on the sphere."""
     rng = np.random.default_rng(2)
@@ -332,6 +423,33 @@ def phase_reference_checks(work, device):
     print(f"[check] U-Net forward card vs CPU max abs err {err:.3g}; "
           f"mean-shift labels equal ({len(set(gpu.tolist()))} clusters)")
 
+    # K1 defines no gradient and says so; the training path gives every conv
+    # a gradient, the card's (K2 filter gradients) against the CPU's
+    params = net.backbone.l_conv[0].pass_params()
+    try:
+        conv_pass_2d(x.to(device), params, torch.float32)
+    except RuntimeError as e:
+        if "inference-only" not in str(e):
+            raise
+    else:
+        fail("conv_pass_2d ran under autograd with weights that require a gradient")
+    grads = {}
+    for dev in ("cpu", device):
+        net.to(dev).zero_grad()
+        net(x.to(dev)).square().sum().backward()
+        # clone: moving the module later rewrites .grad in place
+        grads[str(dev)] = {k: p.grad.cpu().clone() for k, p in net.named_parameters()}
+    cpu_g, gpu_g = grads["cpu"], grads[str(device)]
+    zero = [k for k, g in gpu_g.items() if not bool(g.abs().sum() > 0)]
+    if zero:
+        fail(f"training path left these gradients zero on the card: {zero}")
+    worst = max(float((gpu_g[k] - cpu_g[k]).abs().max() / cpu_g[k].abs().max()) for k in cpu_g)
+    if not worst <= 1e-4:
+        fail(f"U-Net gradients card vs CPU: max abs err / max|grad| {worst:.3g} (limit 1e-4)")
+    print(f"[check] conv_pass_2d raises under autograd; training-path gradients of all "
+          f"{len(gpu_g)} tensors non-zero, card vs CPU max abs err / max|grad| {worst:.3g} "
+          f"(limit 1e-4)")
+
 
 def phase_main_path(work):
     container = write_blob_container(os.path.join(work, "data.zarr"), 2, IMAGE_SIZE, seed=5)
@@ -387,6 +505,148 @@ def phase_main_path(work):
     return launches
 
 
+def train_config(container, model, **train):
+    return ExperimentConfig(**{
+        "object_size": OBJECT_SIZE,
+        "model_config": dict(model),
+        "train_config": {
+            "train_data_config": {"container_path": str(container), "dataset_name": "raw"},
+            "device": DEVICE,
+            **train,
+        },
+    })
+
+
+def _run_train(config, step_times=None):
+    """``cellulus_tpu_torch.train`` with the K2 count set to 0 just before;
+    returns ``(state, K2 launches)``."""
+    conv3x3_dw.launches = 0
+    conv_pass_2d.launches = 0
+    state = cellulus_tpu_torch.train(config, step_times)
+    torch.cuda.synchronize()
+    if conv_pass_2d.launches:
+        fail(f"the train step launched the inference-only K1 {conv_pass_2d.launches} times")
+    losses = state["logger_data"]["loss"]
+    if not losses or not np.isfinite(losses).all():
+        fail(f"train losses {losses}")
+    return state, conv3x3_dw.launches
+
+
+def phase_train(work, k2_step_ms):
+    """The train main path at the full width of examples/2d/train.toml:
+    bf16 (as the TOML sets it), then float32, a resume, then infer on the
+    trained checkpoint."""
+    container = os.path.join(work, "data.zarr")
+    iters, f32_iters = 20, 3
+    # cadences only at the first and the last step, so the loss fetches in
+    # between time the steady state (each waits for the step before it)
+    common = dict(crop_size=[CROP, CROP], batch_size=TRAIN_BATCH, elastic_deform=True,
+                  save_best_model_every=10**6, save_model_every=10**6,
+                  save_snapshot_every=10**6)
+    # train writes models/, loss.csv and snapshots.zarr to the working directory
+    with contextlib.chdir(work), logged(os.path.join(work, "train.log")):
+        config = train_config(container, MODEL, precision="bfloat16", max_iterations=iters,
+                              **common)
+        tc = config.train_config
+        if (tc.device_pair_sampling, tc.loss_mode, tc.steps_per_dispatch, tc.density,
+                tc.kappa) != (True, "pairs", 1, 0.1, 10.0):
+            fail("the default train settings differ from the ones this script assumes")
+        step_times = []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, launches = _run_train(config, step_times)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if launches != 6 * iters:
+            fail(f"conv3x3_dw launched {launches} times in {iters} steps, expected {6 * iters}")
+        ckpts = sorted(p for p in os.listdir("models") if p.endswith(".pth"))
+        if "best_loss.pth" not in ckpts or f"{iters - 1:06d}.pth" not in ckpts:
+            fail(f"checkpoints after training: {ckpts}")
+        step_ms = 1e3 * float(np.median(np.diff(step_times[1:-1])))
+        bf16_losses = state["logger_data"]["loss"]
+
+        resume = train_config(container, MODEL, precision="bfloat16", max_iterations=iters + 1,
+                              **common)
+        resume.model_config.checkpoint = os.path.join("models", f"{iters - 1:06d}.pth")
+        resumed, resume_launches = _run_train(resume)
+        if resumed["iteration"] != iters or len(resumed["logger_data"]["loss"]) != iters + 1:
+            fail(f"resume ran to iteration {resumed['iteration']}")
+
+        f32 = train_config(container, MODEL, max_iterations=f32_iters, **common)
+        f32_times = []
+        f32_state, f32_launches = _run_train(f32, f32_times)
+        if f32_launches != 6 * f32_iters:
+            fail(f"float32: conv3x3_dw launched {f32_launches} times in {f32_iters} steps")
+        f32_ms = 1e3 * (f32_times[-1] - f32_times[0]) / (f32_iters - 1)
+
+        results = cellulus_tpu_torch.infer(infer_config(
+            container, os.path.join("models", f"{iters:06d}.pth"), MODEL, device=DEVICE))
+    if results is None or not all(0.0 <= results[0][k] <= 1.0 for k in ("F1", "SEG")):
+        fail(f"infer on the trained checkpoint: results {results}")
+    print(f"[train] bf16 {iters} steps in {wall:.2f}s (build and data start included), "
+          f"median step {step_ms:.1f} ms (steady steps, the first excluded), K2 {k2_step_ms:.2f} ms a step "
+          f"= {100 * k2_step_ms / step_ms:.0f}% (K2 times of the [K2] phase), peak memory "
+          f"{peak:.2f} GiB; K2 launches {launches} = 6 x {iters}")
+    print(f"[train] bf16 losses first/last {bf16_losses[0]:.1f} / {bf16_losses[-1]:.1f}; resume "
+          f"ran iteration {resumed['iteration']} ({resume_launches} K2 launches); float32 "
+          f"{f32_iters} steps, mean of steps 1-{f32_iters - 1} {f32_ms:.1f} ms, losses "
+          f"{[round(v, 1) for v in f32_state['logger_data']['loss']]}")
+    print(f"[train] infer on the resumed bf16 checkpoint: F1 {results[0]['F1']:.4f}, "
+          f"SEG {results[0]['SEG']:.4f} (after {iters + 1} steps)")
+    return launches
+
+
+def phase_learn(work):
+    """A small recipe (the sizes of tests/test_quality_gate.py, pair loss)
+    trains on the card. It must learn: ``best_loss.pth`` (the lowest mean
+    loss over a 50-step window) comes from after step 0, and infer on it
+    scores a higher F1 than infer on the step-0 checkpoint.
+
+    The learning rate is 1e-4, not the gate's 1e-3: with pair loss and Adam
+    the embeddings of this recipe run away at 1e-3 and 3e-4 (the loss
+    doubles within 100-200 steps, gradient clipping does not stop it, and
+    the JAX package's own grid-loss gate run does the same late in its 400
+    steps), which makes the run chaotic from one machine to the next. At
+    1e-4 the loss falls for most of the run; its end may still rise, so the
+    loss curve is printed, not gated."""
+    size, iters = 128, 400
+    learn = os.path.join(work, "learn")
+    os.makedirs(learn)
+    # the data of tests/test_quality_gate.py: 12 disks of radius 0.04-0.09 x size
+    container = write_blob_container(os.path.join(learn, "data.zarr"), 2, size, seed=11,
+                                     dtype=np.uint8, num_blobs=12, radius=(0.04, 0.09))
+    model = dict(num_fmaps=16, fmap_inc_factor=2, features_in_last_layer=24,
+                 downsampling_factors=[[2, 2]])
+    config = train_config(
+        container, model, batch_size=4, kappa=5.0, density=0.2, crop_size=[76, 76],
+        max_iterations=iters, initial_learning_rate=1e-4, num_workers=0,
+        elastic_deform=False, save_model_every=iters - 1, save_snapshot_every=10**9,
+        save_best_model_every=50)
+    config.object_size = int(size * 0.13)
+    with contextlib.chdir(learn), logged(os.path.join(learn, "train.log")):
+        t0 = time.perf_counter()
+        state, _ = _run_train(config)
+        train_s = time.perf_counter() - t0
+        results = {}
+        for name in ("000000.pth", "best_loss.pth"):
+            ic = infer_config(container, os.path.join("models", name), model,
+                              device=DEVICE, crop_size=[76, 76], tile_batch_size=4)
+            ic.object_size = config.object_size
+            results[name] = cellulus_tpu_torch.infer(ic)[0]
+        best_iteration = torch.load(os.path.join("models", "best_loss.pth"),
+                                    weights_only=True)["iteration"]
+    windows = np.asarray(state["logger_data"]["loss"]).reshape(-1, 50).mean(axis=1)
+    f1_start, f1 = results["000000.pth"]["F1"], results["best_loss.pth"]["F1"]
+    if not (best_iteration > 0 and f1 > f1_start):
+        fail(f"learn: did not learn (50-step mean losses {windows.round(1).tolist()}, "
+             f"best_loss.pth from iteration {best_iteration}, F1 {f1:.4f} vs {f1_start:.4f} "
+             "at step 0)")
+    print(f"[learn] {iters} steps in {train_s:.1f}s; 50-step mean losses "
+          f"{windows.round(1).tolist()}; best_loss.pth (iteration {best_iteration}): "
+          f"F1 {f1:.4f}, SEG {results['best_loss.pth']['SEG']:.4f}; step-0 checkpoint: "
+          f"F1 {f1_start:.4f}, SEG {results['000000.pth']['SEG']:.4f}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -397,15 +657,21 @@ def main() -> None:
     phase_card()
     phase_build()
     k1 = phase_conv_pass(device)
+    k2 = phase_conv_dw(device)
     k3 = phase_ball_stats(device)
     with tempfile.TemporaryDirectory() as work:
         phase_reference_checks(work, device)
         torch.cuda.reset_peak_memory_stats()
         launches = phase_main_path(work)
+        launches["conv3x3_dw"] = phase_train(work, k2[torch.bfloat16]["ms"])
+        phase_learn(work)
     rows = [
         {"name": "conv_pass_2d", "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_pass.cu",
          "replaces": "cellulus_tpu/ops/pallas_conv.py:55", "launches": launches["conv_pass_2d"],
          **k1},
+        {"name": "conv3x3_dw", "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_dw.cu",
+         "replaces": "cellulus_tpu/ops/pallas_dw.py:64", "launches": launches["conv3x3_dw"],
+         **k2[torch.bfloat16]},
         {"name": "ball_stats", "route": "cuda", "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
          "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39", "launches": launches["ball_stats"],
          **k3},

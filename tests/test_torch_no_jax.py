@@ -3,6 +3,7 @@ the port runs end to end on the CPU through its API and its command line."""
 
 import ast
 import json
+import math
 import os
 import subprocess
 import sys
@@ -49,6 +50,40 @@ print("RESULT " + json.dumps({"bad": bad, "stages": sorted(stage_seconds),
 """
 
 
+_TRAIN_SCRIPT = r"""
+import json, sys
+import chip_smoke
+import cellulus_tpu_torch
+
+model = dict(num_fmaps=4, fmap_inc_factor=2, features_in_last_layer=8,
+             downsampling_factors=[[2, 2]])
+container = chip_smoke.write_blob_container("data.zarr", 1, 64, seed=1, dtype="uint8")
+train = dict(device="cpu", crop_size=[44, 44], batch_size=2, kappa=4.0, max_iterations=3,
+             num_workers=1, elastic_deform=True, save_model_every=2,
+             save_best_model_every=2, save_snapshot_every=2)
+config = chip_smoke.train_config(container, model, **train)
+state = cellulus_tpu_torch.train(config)
+infer = chip_smoke.infer_config(container, "models/best_loss.pth", model, device="cpu",
+                                crop_size=[44, 44], num_infer_iterations=2,
+                                mean_shift_max_iterations=20)
+results = cellulus_tpu_torch.infer(infer)
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+    or m == "cellulus_tpu" or m.startswith("cellulus_tpu.")
+)
+lines = ["object_size = %d" % chip_smoke.OBJECT_SIZE, "[model_config]"]
+lines += ["%s = %s" % (k, json.dumps(v)) for k, v in model.items()]
+lines += ["[train_config]"]
+lines += ["%s = %s" % (k, json.dumps(v)) for k, v in dict(train, max_iterations=2).items()]
+lines += ["[train_config.train_data_config]", 'container_path = "data.zarr"',
+          'dataset_name = "raw"']
+open("train.toml", "w").write("\n".join(lines) + "\n")
+print("RESULT " + json.dumps({"bad": bad, "losses": state["logger_data"]["loss"],
+                              "F1": results[0]["F1"]}))
+"""
+
+
 def _run(args, cwd):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
@@ -72,6 +107,24 @@ def test_port_runs_without_jax(tmp_path):
     assert "[perf] segment" in out and "F1 for dataset" in out
 
 
+def test_port_trains_without_jax(tmp_path):
+    """train() on the CPU (elastic on, device pairs), its checkpoint through
+    infer, and ``python -m cellulus_tpu_torch train <toml>``, without JAX."""
+    out = _run(["-c", _TRAIN_SCRIPT], tmp_path)
+    line = [l for l in out.splitlines() if l.startswith("RESULT ")][-1]
+    result = json.loads(line[len("RESULT "):])
+    assert result["bad"] == []
+    assert len(result["losses"]) == 3 and all(map(math.isfinite, result["losses"]))
+    assert 0.0 <= result["F1"] <= 1.0
+    assert sorted(os.listdir(tmp_path / "models")) == [
+        "000000.pth", "000002.pth", "best_loss.pth"]
+
+    os.rename(tmp_path / "models", tmp_path / "models_api")
+    out = _run(["-m", "cellulus_tpu_torch", "train", "train.toml"], tmp_path)
+    assert "===> iteration: 1" in out
+    assert (tmp_path / "models" / "000001.pth").exists()
+
+
 def _imported_modules(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
@@ -82,7 +135,11 @@ def _imported_modules(path: Path):
 
 def test_no_jax_imports_in_the_sources():
     files = sorted((REPO / "cellulus_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 20
+    names = {str(f.relative_to(REPO)) for f in files}
+    for module in ("datasets/zarr_dataset.py", "datasets/sampling.py", "datasets/elastic.py",
+                   "criterions/oce_loss.py", "train.py", "ops/conv_dw.py", "ops/conv_vjp.py",
+                   "utils/checkpoint.py", "utils/logger.py"):
+        assert f"cellulus_tpu_torch/{module}" in names
     offending = [
         (str(f.relative_to(REPO)), name)
         for f in files
