@@ -4,7 +4,8 @@
 //
 // all VALID, NHWC, (B, H, W, Cin) -> (B, H-4, W-4, C); weights (kh, kw, cin, C)
 // in the compute type, biases f32; f32 accumulation, bias and ReLU in the
-// epilogue, every intermediate stored in the compute type (f32 or bf16).
+// epilogue, every intermediate stored in the compute type (f32 or bf16), so
+// the rounding points are those of conv_pass_2d_plain.
 //
 // Replaces: cellulus_tpu/ops/pallas_conv.py `_pass_call` / `conv_pass_2d`
 // (one Pallas program per row strip, the four stages in VMEM).
@@ -12,83 +13,349 @@
 // What bounds it on the H100: operations. At the main path's widths a pass
 // does 30-150 FLOP per byte it must move (input once, output once), far
 // above the card's ridge point, so the least time is the FLOPs over the
-// peak of the compute type. This version runs on the CUDA cores (f32 FMA,
-// 67 TFLOP/s peak), for bf16 too; moving the products onto the tensor
-// cores (mma/wgmma) is later work.
+// tensor-core peak of the compute type (bf16 989 TFLOP/s; float32 as
+// 3xTF32, 495 / 3 = 165 TFLOP/s).
 //
-// What the design does about it: the three intermediates never touch device
-// memory. A block owns a TH x TW output tile of one image and keeps the
-// (TH+4) x (TW+4) x Cin input tile and the (TH+2) x (TW+2) x C
-// intermediates in shared memory, pixel-major with the channel pitch padded
-// by 4 (so 8 neighbouring pixels fall in distinct bank groups); the input
-// buffer is reused for the stage-2 output, so the footprint is
-// A + max(IN, B) plus one weight chunk. Each stage is an implicit GEMM
-// (pixels x channels, K = kh*kw*cin): the block stages 32 rows of the
-// weights in shared memory as f32, and each thread accumulates a 4-pixel x
-// 4-channel register tile from 128-bit shared loads (8 loads per 64 FMAs).
-// A warp tile is 32 pixels x 16 channels: lanes sharing pixels read them by
-// broadcast, lanes sharing channels read the weights by broadcast.
+// What the design does about it:
+// - The three intermediates never touch device memory. A block owns a
+//   TH x TW output tile of one image and keeps the (TH+4) x (TW+4) input
+//   tile and the (TH+2) x (TW+2) intermediates in shared memory,
+//   pixel-major, channels zero-padded to a multiple of 16 and the pixel
+//   pitch padded so that eight neighbouring pixels fall in distinct banks
+//   (bf16: +8 elements, odd 16-byte units for ldmatrix rows; f32: +4).
+//   The input buffer is reused for the stage-2 output, so the footprint is
+//   A + max(IN, B) plus the weight ring. A block's time is mostly per
+//   weight chunk and round of warp units, not per pixel, so the tile sets
+//   the speed (on the H100 the bf16 up pass takes 62 ms at 8 x 8, 22 ms at
+//   14 x 14 and 29 ms at 16 x 16, whose stage 1 needs a second round:
+//   scripts/torch_kernel_check.py tiles). The wrapper takes, of the square
+//   tiles that fit (conv_pass_2d_smem_bytes), the one conv_pass_2d_cost
+//   rates cheapest.
+// - A wide input (cin >= 128, the up pass) is not held: stage 1 streams it
+//   through the ring, 16 (bf16) or 8 (f32) channels of the input tile at a
+//   time with their weight rows for all 9 taps, and only the two
+//   intermediates stay resident. That takes the up pass from 12 x 12 to
+//   16 x 16 tiles in bf16 and from 8 x 8 to 14 x 14 in f32.
+// - Each stage is an implicit GEMM on the tensor cores: M = pixels of the
+//   stage's output grid, N = C, K = kh * kw * cinp (cin zero-padded to the
+//   mma depth, 16 in bf16 and 8 in f32, which is how the down pass's
+//   cin = 1 reaches it). The 8
+//   warps take units of the stage's output in rounds: bf16, 32 pixels x 64
+//   channels (two m16 by eight n8 tiles); f32, 32 pixels x 32 channels,
+//   since its tiles are smaller (8 x 8 at C = 192) and a wider unit would
+//   leave warps idle (and spill: 64 accumulators and 64 partial sums). M rows past the grid read a clamped pixel
+//   and are not stored. A fragments come from the activation tile at the
+//   tap-shifted pixel of each row (one row address per lane), B fragments
+//   from the weights, which stream through a cp.async ring (3 stages in
+//   bf16, 2 in f32) of 64-row chunks (32 for C > 64) in the compute type,
+//   so the next chunk loads while this one multiplies. Each k step's
+//   fragments are loaded before the previous step's mma's are issued.
+// - bf16: mma.sync m16n8k16, A by ldmatrix, B by ldmatrix.trans. f32:
+//   3xTF32 (mma_tile.cuh) with fragments by 32-bit shared loads, the three
+//   products issued in three passes over the unit's n8 tiles so that no
+//   mma waits on the one before; each chunk is summed from zero and added
+//   to the running sum in float32, since the tensor cores round their
+//   accumulator toward zero.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tile.cuh"
+
 namespace {
 
+using namespace mma_tile;
+
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int TM = 4;           // pixels per thread, 8 apart within a warp tile
-constexpr int TN = 4;           // consecutive channels per thread
-constexpr int WT_P = 8 * TM;    // pixels per warp tile
-constexpr int WT_C = 4 * TN;    // channels per warp tile
-constexpr int MAXT = 4;         // warp tiles a warp carries through one pass over K
-constexpr int KC = 32;          // weight rows staged per chunk
+constexpr int KC_MAX = 144;  // weight rows per ring stage, at most
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// Per compute type: the warp's unit (mt m16 tiles of pixels x nt n8 tiles
+// of channels), ring stages, activation pitch padding, input channels per
+// ring stage when stage 1 streams its input, and the multiple of the mma
+// depth that each tap's input channels are zero-padded to in K.
+template <typename T> struct Cfg;
+template <> struct Cfg<__nv_bfloat16> {
+  static constexpr int mt = 2, nt = 8, stages = 3, pad = 8, scb = 16, kpad = 16;
+};
+template <> struct Cfg<float> {
+  static constexpr int mt = 2, nt = 4, stages = 2, pad = 4, scb = 8, kpad = 8;
+};
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+// Weight rows per ring stage: 64 where the rows are narrow (C <= 64), so a
+// barrier is passed half as often; 32 for wider C, whose rows would not fit.
+__host__ __device__ inline int kc_rows(int C) { return C <= 64 ? 64 : 32; }
 
-// Four consecutive elements (16-byte aligned for f32, 8-byte for bf16).
-__device__ __forceinline__ void load4(const float* p, float a[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float a[4]) {
-  uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 l = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v.x));
-  const float2 h = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v.y));
-  a[0] = l.x; a[1] = l.y; a[2] = h.x; a[3] = h.y;
-}
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-__host__ __device__ inline int pitch_of(int c) { return c % 4 == 0 ? c + 4 : c; }
 __host__ __device__ inline int round16(int c) { return (c + 15) / 16 * 16; }
 __host__ __device__ inline size_t round8(size_t n) { return (n + 7) / 8 * 8; }
 
-// Shared memory layout: A (stages 1 and 3), X (input tile, then stage 2),
-// both in elements of the compute type, then the f32 weight chunk.
+// elements per pixel of an activation tile with c channels
+template <typename T>
+__host__ __device__ inline int act_pitch(int c) { return round16(c) + Cfg<T>::pad; }
+// elements per row of a weight chunk with C output channels
+__host__ __device__ inline int w_pitch(int C) { return round16(C) + 8; }
+
+// A wide input (the up pass, cin = 256): stage 1 streams its input through
+// the ring, scb channels of the (TH+4) x (TW+4) tile at a time with their
+// 9 * scb weight rows, instead of holding the whole input tile (150 KB in
+// f32 at 8 x 8), so a larger output tile fits. Chosen by shape.
+template <typename T>
+__host__ __device__ inline bool stream_input(int cin) {
+  return cin >= 128 && cin % Cfg<T>::scb == 0;
+}
+// elements per pixel of a streamed input slice (odd 16-byte units for
+// ldmatrix rows; 8 pixels x 4 lanes over 32 banks for the f32 fragments)
+template <typename T>
+__host__ __device__ inline int slice_pitch() { return Cfg<T>::scb + Cfg<T>::pad; }
+template <typename T>
+__host__ __device__ inline size_t slice_elems(int th, int tw) {
+  return round8((size_t)(th + 4) * (tw + 4) * slice_pitch<T>());
+}
+
+// Elements of one ring stage: a weight chunk, or a streamed input slice and
+// its weight rows.
+template <typename T>
+__host__ __device__ inline size_t ring_stage_elems(int cin, int C, int th, int tw) {
+  const size_t chunk = (size_t)kc_rows(C) * w_pitch(C);
+  if (!stream_input<T>(cin)) return chunk;
+  const size_t streamed = slice_elems<T>(th, tw) + (size_t)9 * Cfg<T>::scb * w_pitch(C);
+  return streamed > chunk ? streamed : chunk;
+}
+
+// Shared memory layout, in elements of the compute type: A (stages 1 and
+// 3), X (input tile unless stage 1 streams it, then stage 2), the ring.
+template <typename T>
 __host__ __device__ inline void buffer_elems(int cin, int C, int th, int tw, size_t* a,
                                              size_t* x, size_t* w) {
-  const size_t mid = (size_t)(th + 2) * (tw + 2) * pitch_of(C);
-  const size_t in = (size_t)(th + 4) * (tw + 4) * pitch_of(cin);
+  const size_t mid = (size_t)(th + 2) * (tw + 2) * act_pitch<T>(C);
+  const size_t in =
+      stream_input<T>(cin) ? 0 : (size_t)(th + 4) * (tw + 4) * act_pitch<T>(cin);
   *a = round8(mid);
   *x = round8(in > mid ? in : mid);
-  *w = (size_t)KC * round16(C);
+  *w = (size_t)Cfg<T>::stages * ring_stage_elems<T>(cin, C, th, tw);
+}
+
+// Rows [k0, k0 + kc_rows(C)) of one stage's weights, K ordered (tap, ci < cinp),
+// into a ring stage: zeros for ci >= cin, k >= ktot and columns >= C.
+template <typename T>
+__device__ __forceinline__ void load_w_chunk(T* dst, const T* __restrict__ w, int k0, int ktot,
+                                             int cin, int cinp, int C) {
+  constexpr int V = 16 / sizeof(T);
+  const int C16 = round16(C), wp = w_pitch(C);
+  const int nv = C16 / V, KC = kc_rows(C);
+  if (C % V == 0) {
+    for (int idx = threadIdx.x; idx < KC * nv; idx += kThreads) {
+      const int r = idx / nv, col = (idx - r * nv) * V;
+      const int k = k0 + r, tap = k / cinp, ci = k - tap * cinp;
+      const bool ok = k < ktot && ci < cin && col < C;
+      const T* src = ok ? w + ((size_t)tap * cin + ci) * C + col : w;
+      cp_async16(dst + r * wp + col, src, ok ? 16 : 0);
+    }
+  } else {  // rows not 16-byte aligned: plain loads (ordered by the ring's barrier)
+    for (int idx = threadIdx.x; idx < KC * C16; idx += kThreads) {
+      const int r = idx / C16, col = idx - r * C16;
+      const int k = k0 + r, tap = k / cinp, ci = k - tap * cinp;
+      const bool ok = k < ktot && ci < cin && col < C;
+      dst[r * wp + col] = ok ? w[((size_t)tap * cin + ci) * C + col] : T(0.f);
+    }
+  }
+}
+
+// Ring stage for input channels [cb, cb + scb) of a streamed stage 1: the
+// slice of the (th+4) x (tw+4) input tile at slice_pitch (zeros past the
+// image edge), then the weight rows (tap, ci) of those channels.
+template <typename T>
+__device__ __forceinline__ void load_stream_chunk(T* dst, const T* __restrict__ xin, int H,
+                                                  int W, int cin, int gy0, int gx0, int th,
+                                                  int tw, const T* __restrict__ w, int cb,
+                                                  int C) {
+  constexpr int V = 16 / sizeof(T), SCB = Cfg<T>::scb, SP = Cfg<T>::scb + Cfg<T>::pad;
+  const int iw = tw + 4, n_pix = (th + 4) * iw;
+  for (int idx = threadIdx.x; idx < n_pix * (SCB / V); idx += kThreads) {
+    const int p = idx / (SCB / V), c = (idx % (SCB / V)) * V;
+    const int gy = gy0 + p / iw, gx = gx0 + p % iw;
+    const bool ok = gy < H && gx < W;
+    const T* src = ok ? xin + ((size_t)gy * W + gx) * cin + cb + c : xin;
+    cp_async16(dst + p * SP + c, src, ok ? 16 : 0);
+  }
+  T* wd = dst + slice_elems<T>(th, tw);
+  const int C16 = round16(C), wp = w_pitch(C);
+  if (C % V == 0) {
+    const int nv = C16 / V;
+    for (int idx = threadIdx.x; idx < 9 * SCB * nv; idx += kThreads) {
+      const int r = idx / nv, col = (idx - r * nv) * V;
+      const int tap = r / SCB, ci = cb + r % SCB;
+      const bool ok = col < C;
+      const T* src = ok ? w + ((size_t)tap * cin + ci) * C + col : w;
+      cp_async16(wd + r * wp + col, src, ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < 9 * SCB * C16; idx += kThreads) {
+      const int r = idx / C16, col = idx - r * C16;
+      const int tap = r / SCB, ci = cb + r % SCB;
+      wd[r * wp + col] = col < C ? w[((size_t)tap * cin + ci) * C + col] : T(0.f);
+    }
+  }
+}
+
+// Offset in a source tile of pixel p of a stage's (oh, ow) output grid
+// (rows past P clamp to P - 1; their results are not stored).
+__device__ __forceinline__ int pixel_offset(int p, int P, int ow, int sw, int sp) {
+  p = min(p, P - 1);
+  return ((p / ow) * sw + p % ow) * sp;
+}
+
+struct StageGeom {
+  int sw, sp, cinp, n0, C16, wp;
+};
+
+// Where a streamed stage 1 reads its input: the image, its size and the
+// block's tile origin and size.
+template <typename T>
+struct StreamSrc {
+  const T* x;
+  int H, W, gy0, gx0, th, tw;
+};
+
+// Source offset of row k0 + kk of a K x K stage's K order (tap, ci), where
+// the chunk starts at tap0, ci0; a streamed chunk (SB = scb) is 9 taps of
+// SB channels from tap 0, so its tap and channel are known at compile time.
+template <int K, int SB>
+__device__ __forceinline__ int tap_shift(const StageGeom& s, int tap0, int ci0, int kk) {
+  int tap, ci;
+  if (SB > 0) {
+    tap = kk / SB;
+    ci = kk % SB;
+  } else {
+    tap = tap0;
+    ci = ci0 + kk;
+    while (ci >= s.cinp) {
+      ci -= s.cinp;
+      ++tap;
+    }
+  }
+  return ((tap / K) * s.sw + tap % K) * s.sp + ci;
+}
+
+// Ring stage rows 0 .. kn - 1 (kn a multiple of 16; the stage starts at
+// tap0, ci0 of the K order) into acc. The fragments of the next k step are
+// loaded before the mma's of this one are issued.
+// bf16: off[mi][0] is the source offset of this lane's ldmatrix row of m16
+// tile mi, with its k half.
+constexpr int kMtB = Cfg<__nv_bfloat16>::mt, kNtB = Cfg<__nv_bfloat16>::nt;
+template <int K, int SB>
+__device__ __forceinline__ void mma_chunk(const __nv_bfloat16* src, const int off[kMtB][2],
+                                          const __nv_bfloat16* wc, int tap0, int ci0, int kn,
+                                          const StageGeom& s, float acc[kMtB][kNtB][4]) {
+  const int lane = threadIdx.x & 31;
+  const int b_k = (lane & 7) + ((lane >> 3) & 1) * 8, b_n = (lane >> 4) * 8;
+  uint32_t a[2][kMtB][4], b[2][kNtB / 2][4];
+  auto load = [&](int buf, int kk) {
+    const int shift = tap_shift<K, SB>(s, tap0, ci0, kk);
+#pragma unroll
+    for (int mi = 0; mi < kMtB; ++mi) ldmatrix_x4(a[buf][mi], src + off[mi][0] + shift);
+#pragma unroll
+    for (int np = 0; np < kNtB / 2; ++np)
+      if (s.n0 + np * 16 < s.C16)
+        ldmatrix_x4_trans(b[buf][np], wc + (kk + b_k) * s.wp + s.n0 + np * 16 + b_n);
+  };
+  load(0, 0);
+#pragma unroll
+  for (int kk = 0; kk < KC_MAX; kk += 16) {
+    if (kk >= kn) break;
+    const int cur = (kk / 16) & 1;
+    if (kk + 16 < kn) load(cur ^ 1, kk + 16);
+#pragma unroll
+    for (int np = 0; np < kNtB / 2; ++np) {
+      if (s.n0 + np * 16 >= s.C16) break;
+#pragma unroll
+      for (int mi = 0; mi < kMtB; ++mi) {
+        mma_bf16(acc[mi][2 * np], a[cur][mi], b[cur][np]);
+        mma_bf16(acc[mi][2 * np + 1], a[cur][mi], b[cur][np] + 2);
+      }
+    }
+  }
+}
+
+// f32: off[mi][h] is the source offset of row g + 8h of m16 tile mi. The
+// tensor cores round a float32 accumulator toward zero, so the chunk's sum
+// starts from zero and is added to acc with an ordinary (round to nearest)
+// float32 add: over K = 9 * 256 the drift would otherwise reach 1e-4. The
+// three products go in three passes over the n8 tiles, so that no mma waits
+// on the one before it.
+constexpr int kMtF = Cfg<float>::mt, kNtF = Cfg<float>::nt;
+template <int K, int SB>
+__device__ __forceinline__ void mma_chunk(const float* src, const int off[kMtF][2],
+                                          const float* wc, int tap0, int ci0, int kn,
+                                          const StageGeom& s, float acc[kMtF][kNtF][4]) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  float part[kMtF][kNtF][4];
+#pragma unroll
+  for (int mi = 0; mi < kMtF; ++mi)
+#pragma unroll
+    for (int j = 0; j < kNtF; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) part[mi][j][r] = 0.f;
+  float ra[2][kMtF][4], rb[2][kNtF][2];
+  auto load = [&](int buf, int kk) {
+    const int shift = tap_shift<K, SB>(s, tap0, ci0, kk) + tq;
+#pragma unroll
+    for (int mi = 0; mi < kMtF; ++mi) {
+      const float* p0 = src + off[mi][0] + shift;
+      const float* p1 = src + off[mi][1] + shift;
+      ra[buf][mi][0] = p0[0];
+      ra[buf][mi][1] = p1[0];
+      ra[buf][mi][2] = p0[4];
+      ra[buf][mi][3] = p1[4];
+    }
+#pragma unroll
+    for (int j = 0; j < kNtF; ++j) {  // tiles past C16 read the last one, unused
+      const float* p = wc + (kk + tq) * s.wp + min(s.n0 + j * 8, s.C16 - 8) + gq;
+      rb[buf][j][0] = p[0];
+      rb[buf][j][1] = p[4 * s.wp];
+    }
+  };
+  load(0, 0);
+#pragma unroll
+  for (int kk = 0; kk < KC_MAX; kk += 8) {
+    if (kk >= kn) break;
+    const int cur = (kk / 8) & 1;
+    uint32_t a_hi[kMtF][4], a_lo[kMtF][4], b_hi[kNtF][2], b_lo[kNtF][2];
+#pragma unroll
+    for (int mi = 0; mi < kMtF; ++mi) split_frag<4>(ra[cur][mi], a_hi[mi], a_lo[mi]);
+#pragma unroll
+    for (int j = 0; j < kNtF; ++j) split_frag<2>(rb[cur][j], b_hi[j], b_lo[j]);
+    if (kk + 8 < kn) load(cur ^ 1, kk + 8);
+#pragma unroll
+    for (int j = 0; j < kNtF; ++j)
+#pragma unroll
+      for (int mi = 0; mi < kMtF; ++mi) mma_tf32(part[mi][j], a_lo[mi], b_hi[j]);
+#pragma unroll
+    for (int j = 0; j < kNtF; ++j)
+#pragma unroll
+      for (int mi = 0; mi < kMtF; ++mi) mma_tf32(part[mi][j], a_hi[mi], b_lo[j]);
+#pragma unroll
+    for (int j = 0; j < kNtF; ++j)
+#pragma unroll
+      for (int mi = 0; mi < kMtF; ++mi) mma_tf32(part[mi][j], a_hi[mi], b_hi[j]);
+  }
+#pragma unroll
+  for (int mi = 0; mi < kMtF; ++mi)
+#pragma unroll
+    for (int j = 0; j < kNtF; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][j][r] += part[mi][j][r];
+}
+
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ float round_to(float v, float*) { return v; }
+__device__ __forceinline__ __nv_bfloat16 round_to(float v, __nv_bfloat16*) {
+  return __float2bfloat16_rn(v);
 }
 
 // One K x K VALID conv stage of the block's tile.
@@ -96,130 +363,120 @@ __host__ __device__ inline void buffer_elems(int cin, int C, int th, int tw, siz
 //   dst: (oh, ow) pixels of pitch dp in shared memory, or, when
 //        gout != nullptr, the image's NHWC output at tile origin
 //        (gy0, gx0), clipped to (h_out, w_out)
-template <typename T, int K, bool VEC>
-__device__ void conv_stage(const T* src, int sw, int sp, int cin,
-                           const T* __restrict__ w, const float* __restrict__ b,
-                           int oh, int ow, int C, float* wbuf, T* dst, int dp,
-                           T* __restrict__ gout, int gy0, int gx0, int h_out, int w_out) {
+// Warps take units of (MT*16 pixels x NT*8 channels) in rounds; every round
+// streams the stage's weights through the ring once, ring stages of
+// ring_stride elements. SB = scb: src is the global input in ss, streamed
+// through the ring scb channels at a time (stage 1 only; sw, sp describe
+// the slice).
+template <typename T, int K, int SB = 0>
+__device__ __forceinline__ void conv_stage(const T* src, int sw, int sp, int cin,
+                                           const T* __restrict__ w, const float* __restrict__ bias,
+                                           int oh, int ow, int C, T* ring, int ring_stride,
+                                           T* dst, int dp, T* __restrict__ gout, int gy0, int gx0,
+                                           int h_out, int w_out, StreamSrc<T> ss = {}) {
+  constexpr int S = Cfg<T>::stages, MT = Cfg<T>::mt, NT = Cfg<T>::nt;
+  constexpr int WARPS = kThreads / 32, UM = 16 * MT, UN = 8 * NT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int pg = lane >> 2, cg = lane & 3;
+  const int gq = lane >> 2, tq = lane & 3;
   const int P = oh * ow;
-  const int C16 = round16(C);
-  const int n_tc = C16 / WT_C;
-  const int n_tiles = ((P + WT_P - 1) / WT_P) * n_tc;
-  const int ktot = K * K * cin;
+  StageGeom s;
+  s.sw = sw;
+  s.sp = sp;
+  s.cinp = (cin + Cfg<T>::kpad - 1) / Cfg<T>::kpad * Cfg<T>::kpad;
+  s.C16 = round16(C);
+  s.wp = w_pitch(C);
+  const int ktot = K * K * s.cinp;
+  const int KC = SB > 0 ? K * K * SB : kc_rows(C);
+  const int n_chunks = SB > 0 ? cin / SB : (ktot + KC - 1) / KC;
+  // a streamed ring stage holds the input slice first, its weights after it
+  const int w_at = SB > 0 ? (int)slice_elems<T>(ss.th, ss.tw) : 0;
+  auto load = [&](int i) {
+    T* dst_i = ring + (i % S) * ring_stride;
+    if constexpr (SB > 0)
+      load_stream_chunk(dst_i, ss.x, ss.H, ss.W, cin, ss.gy0, ss.gx0, ss.th, ss.tw, w, i * SB, C);
+    else
+      load_w_chunk(dst_i, w, i * KC, ktot, cin, s.cinp, C);
+  };
+  const int n_m = (P + UM - 1) / UM, n_n = (s.C16 + UN - 1) / UN;
+  const int n_units = n_m * n_n;
 
-  for (int round0 = 0; round0 < n_tiles; round0 += kWarps * MAXT) {
-    float acc[MAXT][TM][TN];
-    int src_off[MAXT][TM];
-    int c0[MAXT];
+  for (int round0 = 0; round0 < n_units; round0 += WARPS) {
+    const int unit = round0 + warp;
+    const bool active = unit < n_units;
+    const int m0 = (unit % n_m) * UM;
+    s.n0 = (unit / n_m) * UN;
+    int off[MT][2];
 #pragma unroll
-    for (int m = 0; m < MAXT; ++m) {
-      const int t = min(round0 + warp + kWarps * m, n_tiles - 1);
-      const int tp = t / n_tc;
-      c0[m] = (t % n_tc) * WT_C + cg * TN;
-      float bias[TN];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bias[j] = c0[m] + j < C ? b[c0[m] + j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int p = min(tp * WT_P + pg + 8 * i, P - 1);
-        src_off[m][i] = ((p / ow) * sw + p % ow) * sp;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[m][i][j] = bias[j];
+    for (int mi = 0; mi < MT; ++mi) {
+      if (sizeof(T) == 2) {  // ldmatrix: this lane's row, and its k half
+        const int m = (lane & 7) + ((lane >> 3) & 1) * 8;
+        off[mi][0] = pixel_offset(m0 + mi * 16 + m, P, ow, sw, sp) + (lane >> 4) * 8;
+        off[mi][1] = 0;
+      } else {
+        off[mi][0] = pixel_offset(m0 + mi * 16 + gq, P, ow, sw, sp);
+        off[mi][1] = pixel_offset(m0 + mi * 16 + gq + 8, P, ow, sw, sp);
       }
     }
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0.f;
 
-    for (int k0 = 0; k0 < ktot; k0 += KC) {
-      const int kn = min(KC, ktot - k0);
-      __syncthreads();  // the previous chunk is no longer read
-      for (int idx = threadIdx.x; idx < KC * C16; idx += kThreads) {
-        const int kk = idx / C16, c = idx - kk * C16;
-        wbuf[idx] = (kk < kn && c < C) ? to_f(w[(size_t)(k0 + kk) * C + c]) : 0.f;
-      }
+    __syncthreads();  // the ring's previous contents and src are settled
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) {
+      if (i < n_chunks) load(i);
+      cp_async_commit();
+    }
+    for (int kc = 0; kc < n_chunks; ++kc) {
+      cp_async_wait<S - 2>();
       __syncthreads();
-      const int kyx0 = k0 / cin, ci0 = k0 - kyx0 * cin;
-#pragma unroll
-      for (int m = 0; m < MAXT; ++m) {
-        if (round0 + warp + kWarps * m >= n_tiles) continue;  // warp-uniform
-        int kyx = kyx0, ci = ci0;
-        for (int kk = 0; kk < kn; kk += (VEC ? 4 : 1)) {
-          const int soff = ((kyx / K) * sw + kyx % K) * sp + ci;
-          if (VEC) {
-            float a[TM][4], wv[4][TN];
-#pragma unroll
-            for (int i = 0; i < TM; ++i) load4(src + src_off[m][i] + soff, a[i]);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) load4(wbuf + (kk + q) * C16 + c0[m], wv[q]);
-#pragma unroll
-            for (int i = 0; i < TM; ++i)
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-#pragma unroll
-                for (int j = 0; j < TN; ++j) acc[m][i][j] = fmaf(a[i][q], wv[q][j], acc[m][i][j]);
-            ci += 4;
-          } else {
-            float wv[TN];
-            load4(wbuf + kk * C16 + c0[m], wv);
-#pragma unroll
-            for (int i = 0; i < TM; ++i) {
-              const float a = to_f(src[src_off[m][i] + soff]);
-#pragma unroll
-              for (int j = 0; j < TN; ++j) acc[m][i][j] = fmaf(a, wv[j], acc[m][i][j]);
-            }
-            ci += 1;
-          }
-          if (ci == cin) {
-            ci = 0;
-            ++kyx;
-          }
+      if (kc + S - 1 < n_chunks) load(kc + S - 1);
+      cp_async_commit();
+      if (active) {
+        const T* stage = ring + (kc % S) * ring_stride;
+        if (SB > 0) {
+          mma_chunk<K, SB>(stage, off, stage + w_at, 0, 0, KC, s, acc);
+        } else {
+          const int tap0 = kc * KC / s.cinp;
+          mma_chunk<K, SB>(src, off, stage, tap0, kc * KC - tap0 * s.cinp,
+                           min(KC, ktot - kc * KC), s, acc);
         }
       }
     }
+    if (!active) continue;
 
+    // bias + ReLU, rounded to the compute type; padded channels (C..C16)
+    // come out as zeros, which the next stage's zero weight rows ignore
 #pragma unroll
-    for (int m = 0; m < MAXT; ++m) {
-      const int t = round0 + warp + kWarps * m;
-      if (t >= n_tiles) continue;
-      const int tp = t / n_tc;
+    for (int j = 0; j < NT; ++j) {
+      const int ch = s.n0 + j * 8 + 2 * tq;
+      if (s.n0 + j * 8 >= s.C16) break;
+      const float b0 = ch < C ? bias[ch] : 0.f, b1 = ch + 1 < C ? bias[ch + 1] : 0.f;
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int p = tp * WT_P + pg + 8 * i;
-        if (p >= P) continue;
-        float v[TN];
+      for (int mi = 0; mi < MT; ++mi) {
 #pragma unroll
-        for (int j = 0; j < TN; ++j) v[j] = fmaxf(acc[m][i][j], 0.f);
-        T* out;
-        if (gout == nullptr) {
-          out = dst + p * dp + c0[m];
-        } else {
-          const int gy = gy0 + p / ow, gx = gx0 + p % ow;
-          if (gy >= h_out || gx >= w_out) continue;
-          out = gout + ((size_t)gy * w_out + gx) * C + c0[m];
-        }
-        if (C % 4 == 0) {
-          if (c0[m] < C) store4(out, v);
-        } else {
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-            if (c0[m] + j < C) out[j] = from_f<T>(v[j]);
+        for (int h = 0; h < 2; ++h) {
+          const int p = m0 + mi * 16 + gq + 8 * h;
+          if (p >= P) continue;
+          const float v0 = fmaxf(acc[mi][j][2 * h] + b0, 0.f);
+          const float v1 = fmaxf(acc[mi][j][2 * h + 1] + b1, 0.f);
+          if (gout == nullptr) {
+            store_pair(dst + p * dp + ch, v0, v1);
+          } else {
+            const int gy = gy0 + p / ow, gx = gx0 + p % ow;
+            if (gy >= h_out || gx >= w_out) continue;
+            T* o = gout + ((size_t)gy * w_out + gx) * C;
+            if (ch < C) o[ch] = round_to(v0, o);
+            if (ch + 1 < C) o[ch + 1] = round_to(v1, o);
+          }
         }
       }
     }
   }
-}
-
-template <typename T, int K>
-__device__ __forceinline__ void stage(const T* src, int sw, int sp, int cin, const T* w,
-                                      const float* b, int oh, int ow, int C, float* wbuf,
-                                      T* dst, int dp, T* gout, int gy0, int gx0, int h_out,
-                                      int w_out) {
-  if (cin % 4 == 0)
-    conv_stage<T, K, true>(src, sw, sp, cin, w, b, oh, ow, C, wbuf, dst, dp, gout, gy0, gx0,
-                           h_out, w_out);
-  else
-    conv_stage<T, K, false>(src, sw, sp, cin, w, b, oh, ow, C, wbuf, dst, dp, gout, gy0, gx0,
-                            h_out, w_out);
 }
 
 template <typename T>
@@ -231,10 +488,11 @@ conv_pass_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float*
                  int H, int W, int cin, int C, int th, int tw) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   size_t a_elems, x_elems, w_elems;
-  buffer_elems(cin, C, th, tw, &a_elems, &x_elems, &w_elems);
+  buffer_elems<T>(cin, C, th, tw, &a_elems, &x_elems, &w_elems);
   T* buf_a = reinterpret_cast<T*>(smem_raw);
   T* buf_x = buf_a + a_elems;
-  float* wbuf = reinterpret_cast<float*>(buf_x + x_elems);
+  T* ring = buf_x + x_elems;
+  const int ring_stride = (int)ring_stage_elems<T>(cin, C, th, tw);
 
   const int h_out = H - 4, w_out = W - 4;
   const int tiles_x = (w_out + tw - 1) / tw;
@@ -243,33 +501,77 @@ conv_pass_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float*
   const int img = blockIdx.y;
   const T* xin = x + (size_t)img * H * W * cin;
 
-  // input tile (th+4, tw+4, cin) at pitch pitch_of(cin); zeros past the
-  // image edge only feed outputs that are clipped away
-  const int iw = tw + 4, ip = pitch_of(cin);
-  const int n_in = (th + 4) * iw * cin;
-  for (int idx = threadIdx.x; idx < n_in; idx += kThreads) {
-    const int p = idx / cin, ci = idx - p * cin;
-    const int gy = gy0 + p / iw, gx = gx0 + p % iw;
-    buf_x[p * ip + ci] =
-        (gy < H && gx < W) ? xin[((size_t)gy * W + gx) * cin + ci] : from_f<T>(0.f);
+  const int iw = tw + 4, mh = th + 2, mw = tw + 2, mp = act_pitch<T>(C);
+  if (stream_input<T>(cin)) {
+    const StreamSrc<T> ss = {xin, H, W, gy0, gx0, th, tw};
+    conv_stage<T, 3, Cfg<T>::scb>(nullptr, iw, slice_pitch<T>(), cin, w1, b1, mh, mw, C, ring,
+                                  ring_stride, buf_a, mp, nullptr, 0, 0, 0, 0, ss);
+    conv_stage<T, 1>(buf_a, mw, mp, C, w2, b2, mh, mw, C, ring, ring_stride, buf_x, mp, nullptr,
+                     0, 0, 0, 0);
+    conv_stage<T, 1>(buf_x, mw, mp, C, w3, b3, mh, mw, C, ring, ring_stride, buf_a, mp, nullptr,
+                     0, 0, 0, 0);
+    conv_stage<T, 3>(buf_a, mw, mp, C, w4, b4, th, tw, C, ring, ring_stride, nullptr, 0,
+                     out + (size_t)img * h_out * w_out * C, gy0, gx0, h_out, w_out);
+    return;
   }
-  // (the first weight chunk's __syncthreads orders these writes before use)
-  const int mh = th + 2, mw = tw + 2, mp = pitch_of(C);
-  stage<T, 3>(buf_x, iw, ip, cin, w1, b1, mh, mw, C, wbuf, buf_a, mp, nullptr, 0, 0, 0, 0);
-  __syncthreads();
-  stage<T, 1>(buf_a, mw, mp, C, w2, b2, mh, mw, C, wbuf, buf_x, mp, nullptr, 0, 0, 0, 0);
-  __syncthreads();
-  stage<T, 1>(buf_x, mw, mp, C, w3, b3, mh, mw, C, wbuf, buf_a, mp, nullptr, 0, 0, 0, 0);
-  __syncthreads();
-  stage<T, 3>(buf_a, mw, mp, C, w4, b4, th, tw, C, wbuf, nullptr, 0,
-              out + (size_t)img * h_out * w_out * C, gy0, gx0, h_out, w_out);
+
+  // input tile (th+4, tw+4, cin16) at pitch act_pitch(cin); zeros past the
+  // image edge (they only feed outputs that are clipped away) and past cin
+  constexpr int V = 16 / sizeof(T);
+  const int ip = act_pitch<T>(cin), cin16 = round16(cin);
+  const int n_pix = (th + 4) * iw;
+  if (cin % V == 0) {
+    const int nv = cin16 / V;
+    for (int idx = threadIdx.x; idx < n_pix * nv; idx += kThreads) {
+      const int p = idx / nv, ci = (idx - p * nv) * V;
+      const int gy = gy0 + p / iw, gx = gx0 + p % iw;
+      const bool ok = gy < H && gx < W && ci < cin;
+      const T* src = ok ? xin + ((size_t)gy * W + gx) * cin + ci : xin;
+      cp_async16(buf_x + p * ip + ci, src, ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < n_pix * cin16; idx += kThreads) {
+      const int p = idx / cin16, ci = idx - p * cin16;
+      const int gy = gy0 + p / iw, gx = gx0 + p % iw;
+      buf_x[p * ip + ci] =
+          (gy < H && gx < W && ci < cin) ? xin[((size_t)gy * W + gx) * cin + ci] : T(0.f);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  // (the first stage's barrier orders these writes before use)
+  conv_stage<T, 3>(buf_x, iw, ip, cin, w1, b1, mh, mw, C, ring, ring_stride, buf_a, mp, nullptr,
+                   0, 0, 0, 0);
+  conv_stage<T, 1>(buf_a, mw, mp, C, w2, b2, mh, mw, C, ring, ring_stride, buf_x, mp, nullptr,
+                   0, 0, 0, 0);
+  conv_stage<T, 1>(buf_x, mw, mp, C, w3, b3, mh, mw, C, ring, ring_stride, buf_a, mp, nullptr,
+                   0, 0, 0, 0);
+  conv_stage<T, 3>(buf_a, mw, mp, C, w4, b4, th, tw, C, ring, ring_stride, nullptr, 0,
+                   out + (size_t)img * h_out * w_out * C, gy0, gx0, h_out, w_out);
+}
+
+// Relative cost of a pass with th x tw tiles over an H x W input: blocks x
+// (rounds x K rows) summed over the four stages. A block's time is mostly
+// per weight chunk and round, so this orders the tiles that fit as the card
+// does (scripts/torch_kernel_check.py tiles).
+template <typename T>
+long long pass_cost(int cin, int C, int th, int tw, int H, int W) {
+  constexpr int WARPS = kThreads / 32, UM = 16 * Cfg<T>::mt, UN = 8 * Cfg<T>::nt;
+  const int kp = Cfg<T>::kpad;
+  const int n_n = (round16(C) + UN - 1) / UN;
+  auto rounds = [&](int P) { return ((P + UM - 1) / UM * n_n + WARPS - 1) / WARPS; };
+  const long long cinp = (cin + kp - 1) / kp * kp, Cp = (C + kp - 1) / kp * kp;
+  const long long rows = rounds((th + 2) * (tw + 2)) * (9 * cinp + 2 * Cp) +
+                         rounds(th * tw) * 9 * Cp;
+  const long long tiles = (long long)((H - 4 + th - 1) / th) * ((W - 4 + tw - 1) / tw);
+  return tiles * rows;
 }
 
 template <typename T>
 size_t smem_bytes(int cin, int C, int th, int tw) {
   size_t a_elems, x_elems, w_elems;
-  buffer_elems(cin, C, th, tw, &a_elems, &x_elems, &w_elems);
-  return (a_elems + x_elems) * sizeof(T) + w_elems * sizeof(float);
+  buffer_elems<T>(cin, C, th, tw, &a_elems, &x_elems, &w_elems);
+  return (a_elems + x_elems + w_elems) * sizeof(T);
 }
 
 template <typename T>
@@ -297,6 +599,13 @@ extern "C" {
 long long conv_pass_2d_smem_bytes(int cin, int C, int th, int tw, int elem_bytes) {
   return (long long)(elem_bytes == 2 ? smem_bytes<__nv_bfloat16>(cin, C, th, tw)
                                      : smem_bytes<float>(cin, C, th, tw));
+}
+
+// Relative cost of th x tw tiles for an H x W input (lower is faster); the
+// wrapper takes the cheapest tile that fits.
+long long conv_pass_2d_cost(int cin, int C, int th, int tw, int H, int W, int elem_bytes) {
+  return elem_bytes == 2 ? pass_cost<__nv_bfloat16>(cin, C, th, tw, H, W)
+                         : pass_cost<float>(cin, C, th, tw, H, W);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the CUDA error code (0 = ok).

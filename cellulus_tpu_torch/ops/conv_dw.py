@@ -22,6 +22,7 @@ from ..utils import kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _SIGNATURES = {
+    "conv3x3_dw_plan": ([ctypes.c_int] * 2, ctypes.c_int),
     "conv3x3_dw_splits": ([ctypes.c_int] * 5, ctypes.c_int),
     "conv3x3_dw_launch": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
@@ -63,6 +64,16 @@ def conv3x3_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             xs = xf[:, ky : ky + Ho, kx : kx + Wo].reshape(-1, Ci)
             dw[ky, kx] = xs.T @ gs
     return dw
+
+
+def conv3x3_dw_design(c_in: int, c_out: int, dtype: torch.dtype) -> str:
+    """The plan the kernel takes for these channel counts (chosen by shape
+    before launch, ``csrc/conv_dw.cu``): tensor cores or CUDA cores."""
+    if not kernels.load("conv_dw", _SIGNATURES).conv3x3_dw_plan(c_in, c_out):
+        return "CUDA cores (f32 FMA)"
+    if dtype == torch.bfloat16:
+        return "mma.sync m16n8k16 bf16"
+    return "mma.sync m16n8k8 3xTF32"
 
 
 def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

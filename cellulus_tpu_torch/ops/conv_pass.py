@@ -25,7 +25,7 @@ from ..utils import kernels
 
 # dynamic shared memory one block may use on Hopper (227 KB)
 MAX_SHARED_BYTES = 232448
-TILE_CANDIDATES = (16, 12, 8, 6, 4, 2, 1)
+TILE_CANDIDATES = (16, 14, 12, 8, 6, 4, 2, 1)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_SIZES = (3, 1, 1, 3)
 
@@ -35,6 +35,7 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "conv_pass_2d_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    "conv_pass_2d_cost": ([ctypes.c_int] * 7, ctypes.c_longlong),
 }
 
 
@@ -91,13 +92,27 @@ def conv_pass_2d_plain(
     return y.to(compute_dtype).permute(0, 2, 3, 1).contiguous()
 
 
-def _pick_tile(lib, c_in: int, c_out: int, elem_bytes: int) -> int:
-    for tile in TILE_CANDIDATES:
-        if lib.conv_pass_2d_smem_bytes(c_in, c_out, tile, tile, elem_bytes) <= MAX_SHARED_BYTES:
-            return tile
-    raise ValueError(
-        f"conv pass {c_in}->{c_out} channels does not fit one block's shared memory"
-    )
+def _pick_tile(lib, c_in: int, c_out: int, H: int, W: int, elem_bytes: int) -> int:
+    """The square tile that fits one block's shared memory and that the
+    kernel's cost model rates cheapest (the larger one on a tie)."""
+    fits = [t for t in TILE_CANDIDATES
+            if lib.conv_pass_2d_smem_bytes(c_in, c_out, t, t, elem_bytes) <= MAX_SHARED_BYTES]
+    if not fits:
+        raise ValueError(
+            f"conv pass {c_in}->{c_out} channels does not fit one block's shared memory"
+        )
+    return min(fits, key=lambda t: lib.conv_pass_2d_cost(c_in, c_out, t, t, H, W, elem_bytes))
+
+
+def conv_pass_2d_design(shape, c_out: int, compute_dtype) -> str:
+    """The kernel's design for an NHWC input of ``shape``: every stage on
+    the tensor cores (``csrc/conv_pass.cu``), and the output tile it takes."""
+    lib = kernels.load("conv_pass", _SIGNATURES)
+    elem = torch.tensor([], dtype=compute_dtype).element_size()
+    _, H, W, c_in = shape
+    tile = _pick_tile(lib, c_in, c_out, H, W, elem)
+    mma = "mma.sync m16n8k16 bf16" if compute_dtype == torch.bfloat16 else "mma.sync m16n8k8 3xTF32"
+    return f"{mma}, {tile}x{tile} tile"
 
 
 def conv_pass_2d(
@@ -124,7 +139,7 @@ def conv_pass_2d(
     B, H, W, c_in = x.shape
     c_out = weights[0].shape[-1]
     elem = torch.tensor([], dtype=compute_dtype).element_size()
-    tile = _pick_tile(lib, c_in, c_out, elem)
+    tile = _pick_tile(lib, c_in, c_out, H, W, elem)
     # repack once per call: compute-dtype weights (kh, kw, C_in, C_out), f32 biases
     x = x.to(compute_dtype).contiguous()
     ws = [w.to(compute_dtype).contiguous() for w in weights]

@@ -3,8 +3,9 @@
 Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface, at first use, and
 loaded with ``ctypes``. Libraries land in ``build/cellulus_tpu_torch/`` at
-the root of the checkout, named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one is reused. All sources build
+the root of the checkout, named by a hash of the source, of every shared
+header ``csrc/*.cuh`` and of the flags, so an edited source or header
+rebuilds and an unchanged one is reused. All sources build
 together, one ``nvcc`` process each, the first time any kernel is needed.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -55,10 +56,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ())).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, Path]:

@@ -9,25 +9,31 @@ Phases, each failing the run (non-zero exit) if it fails:
    for ``sm_90a``, all at once, timed;
 3. K1, the fused conv pass: the kernel against its plain version at the
    three pass shapes of the full-width 2D model's tile batch, in float32
-   (TF32 off) and bfloat16, with timings;
+   (TF32 off) and bfloat16, with the design each shape takes, its TFLOP/s
+   and its plain, cuDNN and bound times;
 4. K2, the 3x3 filter gradient: the kernel against its plain version at the
-   six dw shapes of the full-width train step, float32 and bfloat16, with
-   its plain, cuDNN (``conv2d_weight``) and bound times;
+   six dw shapes of the full-width train step, float32 and bfloat16, two
+   launches bit-identical, with the plan each shape takes (tensor or CUDA
+   cores), its TFLOP/s and its plain, cuDNN (``conv2d_weight``) and bound
+   times;
 5. K3, the mean-shift ball statistics: the kernel against its plain version
    on random points and on points lying exactly on the ball boundary;
 6. reference checks: the full-width U-Net on the card against the CPU
    (forward, and every gradient of the training path), mean-shift labels,
    and ``conv_pass_2d`` refusing to run under autograd;
 7. the infer main path: ``cellulus_tpu_torch.infer`` with the default
-   inference settings, on a synthetic 2-sample 512x512 uint16 container and
-   seeded random weights at the full width of ``examples/2d``, through
-   predict -> detect -> segment -> evaluate; K1 and K3 must have launched;
+   inference settings (float32), on a synthetic 2-sample 512x512 uint16
+   container and seeded random weights at the full width of ``examples/2d``,
+   through predict -> detect -> segment -> evaluate, then again at
+   ``examples/2d/infer.toml``'s bfloat16; each run must launch K1 18 times
+   and K3;
 8. the train main path: ``cellulus_tpu_torch.train`` at the full width of
    ``examples/2d/train.toml`` (bf16, elastic on, device pairs) for 20 steps,
    K2 launched 6 times a step, a resume, 3 float32 steps, then infer on the
    trained checkpoint;
 9. learn: a small recipe trains 400 steps and must beat its step-0 F1;
-10. the kernels line (JSON), then the last line
+10. the kernels line (JSON, one row per kernel and input type), then the
+    last line
     ``{"ok": true, "device": {...}}``.
 
 Needs CUDA: without it the script exits non-zero and prints no result.
@@ -53,15 +59,19 @@ from cellulus_tpu_torch.configs import ExperimentConfig
 from cellulus_tpu_torch.io import zarr
 from cellulus_tpu_torch.models import UNet, compute_geometry
 from cellulus_tpu_torch.ops.ball_stats import ball_stats, ball_stats_plain, point_set
-from cellulus_tpu_torch.ops.conv_dw import conv3x3_dw, conv3x3_dw_plain
-from cellulus_tpu_torch.ops.conv_pass import conv_pass_2d, conv_pass_2d_plain
+from cellulus_tpu_torch.ops.conv_dw import conv3x3_dw, conv3x3_dw_design, conv3x3_dw_plain
+from cellulus_tpu_torch.ops.conv_pass import conv_pass_2d, conv_pass_2d_design, conv_pass_2d_plain
 from cellulus_tpu_torch.ops.mean_shift import mean_shift_fit_predict
 from cellulus_tpu_torch.utils import kernels
 
-# H100 SXM published peaks (dense): HBM bytes/s, float32 on the CUDA cores,
-# bfloat16 on the tensor cores
+# H100 SXM published peaks (dense): HBM bytes/s; the least time of K1 and
+# K2 takes the tensor cores' rate of each input type: bfloat16 989 TFLOP/s,
+# float32 as 3xTF32 (three TF32 products per float32 product, 495 / 3 TFLOP/s,
+# which is how the kernels compute float32: with the CUDA cores' 67 TFLOP/s
+# a share could read above 100%); K3 runs on the CUDA cores in float32
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_OPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+CUDA_CORE_F32_OPS = 67e12
 
 # the full-width 2D model of examples/2d/infer.toml and the default
 # inference settings
@@ -237,12 +247,14 @@ def pass_shapes(batch):
 
 
 def phase_conv_pass(device):
-    """K1 against its plain version at the tile batch's pass shapes."""
+    """K1 against its plain version at the tile batch's pass shapes, in both
+    compute types; returns the sums per type."""
     batch = TILE_BATCH * 2 * NUM_INFER_ITERATIONS
     gen = torch.Generator().manual_seed(1)
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-             "max_abs_err": 0.0}
+    out = {}
     for dtype in (torch.float32, torch.bfloat16):
+        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                 "max_abs_err": 0.0, "flops": 0.0, "nbytes": 0.0}
         for name, shape, c_out in pass_shapes(batch):
             params = _pass_params(shape[-1], c_out, gen, device)
             x = torch.rand(shape, generator=gen).to(device)
@@ -271,21 +283,24 @@ def phase_conv_pass(device):
             nbytes = e * (B * H * W * c_in + B * (H - 4) * (W - 4) * c_out) + e * sum(
                 p["w"].numel() for p in params.values()) + 4 * 4 * c_out
             bound_ms = 1e3 * max(flops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S)
-            by_ops = flops / PEAK_OPS[dtype] >= nbytes / HBM_BYTES_PER_S
             print(f"[K1] {name:6s} {str(dtype):14s} {tuple(shape)}->{c_out}: "
+                  f"{conv_pass_2d_design(shape, c_out, dtype)}; "
                   f"max_abs_err {max_err:.3g} ({tol_text}); kernel {ms:.2f} ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, "
                   f"cuDNN {library_ms:.2f} ms, bound {bound_ms:.3f} ms")
-            if dtype == torch.float32:  # the main path's dtype
-                total["ms"] += ms
-                total["plain_ms"] += plain_ms
-                total["library_ms"] += library_ms
-                total["bound_ms"] += bound_ms
-                total["max_abs_err"] = max(total["max_abs_err"], max_err)
-                total["bound_by"] = "operations" if by_ops else "bytes"
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                           ("bound_ms", bound_ms), ("flops", flops), ("nbytes", nbytes)):
+                total[key] += v
+            total["max_abs_err"] = max(total["max_abs_err"], max_err)
             del x
             torch.cuda.empty_cache()
-    return total
+        by_ops = total.pop("flops") / PEAK_OPS[dtype] >= total.pop("nbytes") / HBM_BYTES_PER_S
+        total["bound_by"] = "operations" if by_ops else "bytes"
+        print(f"[K1] per tile batch of {batch} images, {dtype}: kernel {total['ms']:.2f} ms, "
+              f"plain {total['plain_ms']:.2f} ms, cuDNN {total['library_ms']:.2f} ms, bound "
+              f"{total['bound_ms']:.3f} ms ({total['bound_by']})")
+        out[dtype] = total
+    return out
 
 
 def dw_shapes(batch):
@@ -309,8 +324,11 @@ def phase_conv_dw(device):
             x = torch.randn(xs, generator=gen, device=device).to(dtype)
             g = torch.randn(gs, generator=gen, device=device).to(dtype)
             got = conv3x3_dw(x, g)
+            again = conv3x3_dw(x, g)
             ref = conv3x3_dw_plain(x, g)
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"conv3x3_dw {name} {dtype}: two launches on the same inputs differ")
             err = (got - ref).abs()
             max_err, scale = float(err.max()), float(ref.abs().max())
             if dtype == torch.float32:
@@ -321,7 +339,7 @@ def phase_conv_dw(device):
                 tol_text = f"atol 2e-2*max|ref| = {2e-2 * scale:.3g}"
             if not ok or not torch.isfinite(got).all():
                 fail(f"conv3x3_dw {name} {dtype}: max abs err {max_err:.3g} ({tol_text})")
-            del got, ref, err
+            del got, again, ref, err
             B, H, W, c_in = xs
             c_out = gs[-1]
             w_shape = (c_out, c_in, 3, 3)
@@ -333,6 +351,7 @@ def phase_conv_dw(device):
             nbytes = x.element_size() * (x.numel() + g.numel()) + 4 * 9 * c_in * c_out
             bound_ms = 1e3 * max(flops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S)
             print(f"[K2] {name:9s} {str(dtype):14s} x{tuple(xs)} g{tuple(gs)}: "
+                  f"{conv3x3_dw_design(c_in, c_out, dtype)}; bit-identical over two launches; "
                   f"max_abs_err {max_err:.3g} ({tol_text}); kernel {ms:.3f} ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
                   f"cuDNN {library_ms:.3f} ms, bound {bound_ms:.3f} ms")
@@ -396,8 +415,8 @@ def phase_ball_stats(device):
     within = float(counts.sum())
     ops = S * N * (2 * d + 4) + within * (d + 1)
     nbytes = 4 * (S * d + S) + N * (4 * d + 4 + 1) + 4 * S * (d + 1)
-    bound_ms = 1e3 * max(ops / PEAK_OPS[torch.float32], nbytes / HBM_BYTES_PER_S)
-    bound_by = "operations" if ops / PEAK_OPS[torch.float32] >= nbytes / HBM_BYTES_PER_S else "bytes"
+    bound_ms = 1e3 * max(ops / CUDA_CORE_F32_OPS, nbytes / HBM_BYTES_PER_S)
+    bound_by = "operations" if ops / CUDA_CORE_F32_OPS >= nbytes / HBM_BYTES_PER_S else "bytes"
     print(f"[K3] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": float(sum_err[exact].max())}
@@ -451,26 +470,16 @@ def phase_reference_checks(work, device):
           f"(limit 1e-4)")
 
 
-def phase_main_path(work):
-    container = write_blob_container(os.path.join(work, "data.zarr"), 2, IMAGE_SIZE, seed=5)
-    checkpoint = os.path.join(work, "weights.pth")
-    save_random_checkpoint(checkpoint, seed=0, **MODEL)
-    config = infer_config(container, checkpoint, MODEL, device="cuda:0")
-    ic = config.inference_config
-    if (ic.crop_size, ic.tile_batch_size, ic.num_infer_iterations, ic.p_salt_pepper) != (
-            [CROP, CROP], TILE_BATCH, NUM_INFER_ITERATIONS, 0.01):
-        fail("the default inference settings differ from the ones this script assumes")
-
+def _infer_main(work, container, checkpoint, precision):
+    """One run of the infer main path at ``precision``, with the kernel
+    counts set to 0 just before it; returns its launches."""
+    config = infer_config(container, checkpoint, MODEL, device="cuda:0", precision=precision)
     conv_pass_2d.launches = 0
     ball_stats.launches = 0
     stage_seconds = {}
     t0 = time.perf_counter()
-    cwd = os.getcwd()
-    os.chdir(work)  # evaluate writes its results files to the working directory
-    try:
+    with contextlib.chdir(work):  # evaluate writes its results files to the working directory
         results = cellulus_tpu_torch.infer(config, stage_seconds)
-    finally:
-        os.chdir(cwd)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"conv_pass_2d": conv_pass_2d.launches, "ball_stats": ball_stats.launches}
@@ -479,30 +488,46 @@ def phase_main_path(work):
     emb = f["embeddings"][...]
     seg = f["segmentation"][...]
     if emb.shape != (2, 3, IMAGE_SIZE, IMAGE_SIZE) or not np.isfinite(emb).all():
-        fail(f"embeddings {emb.shape}, finite={np.isfinite(emb).all()}")
+        fail(f"{precision}: embeddings {emb.shape}, finite={np.isfinite(emb).all()}")
     if emb[:, 2].min() < 0:
-        fail("negative uncertainty channel")
+        fail(f"{precision}: negative uncertainty channel")
     if seg.shape != (2, 1, IMAGE_SIZE, IMAGE_SIZE):
-        fail(f"segmentation shape {seg.shape}")
+        fail(f"{precision}: segmentation shape {seg.shape}")
     instances = [int(len(np.unique(seg[s, 0])) - (seg[s, 0] == 0).any()) for s in range(2)]
     for s in range(2):
         ids = np.unique(seg[s, 0])
         ids = ids[ids > 0]
         if len(ids) and not np.array_equal(ids, np.arange(1, len(ids) + 1)):
-            fail("segmentation labels are not consecutive from 1")
+            fail(f"{precision}: segmentation labels are not consecutive from 1")
     if results is None or not all(0.0 <= results[0][k] <= 1.0 for k in ("F1", "SEG")):
-        fail(f"evaluate results {results}")
+        fail(f"{precision}: evaluate results {results}")
     expected_k1 = 3 * math.ceil(9 / TILE_BATCH) * 2  # 3 passes per tile batch
     if launches["conv_pass_2d"] != expected_k1:
-        fail(f"conv_pass_2d launched {launches['conv_pass_2d']} times, expected {expected_k1}")
+        fail(f"{precision}: conv_pass_2d launched {launches['conv_pass_2d']} times, "
+             f"expected {expected_k1}")
     if launches["ball_stats"] <= 0:
-        fail("ball_stats never launched on the main path")
-    print(f"[main] stages (s): {json.dumps({k: round(v, 3) for k, v in stage_seconds.items()})}, "
-          f"total {wall:.2f}s")
-    print(f"[main] instances per sample {instances}, F1 {results[0]['F1']:.4f}, "
+        fail(f"{precision}: ball_stats never launched on the main path")
+    print(f"[main] {precision} stages (s): "
+          f"{json.dumps({k: round(v, 3) for k, v in stage_seconds.items()})}, total {wall:.2f}s")
+    print(f"[main] {precision} instances per sample {instances}, F1 {results[0]['F1']:.4f}, "
           f"SEG {results[0]['SEG']:.4f} (random weights), launches {json.dumps(launches)}, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return launches
+
+
+def phase_main_path(work):
+    """The infer main path with the default inference settings (float32),
+    then again at examples/2d/infer.toml's ``precision = "bfloat16"``.
+    Returns the launches of each run, by precision."""
+    container = write_blob_container(os.path.join(work, "data.zarr"), 2, IMAGE_SIZE, seed=5)
+    checkpoint = os.path.join(work, "weights.pth")
+    save_random_checkpoint(checkpoint, seed=0, **MODEL)
+    ic = infer_config(container, checkpoint, MODEL, device="cuda:0").inference_config
+    if (ic.crop_size, ic.tile_batch_size, ic.num_infer_iterations, ic.p_salt_pepper,
+            ic.precision) != ([CROP, CROP], TILE_BATCH, NUM_INFER_ITERATIONS, 0.01, "float32"):
+        fail("the default inference settings differ from the ones this script assumes")
+    return {precision: _infer_main(work, container, checkpoint, precision)
+            for precision in ("float32", "bfloat16")}
 
 
 def train_config(container, model, **train):
@@ -593,7 +618,7 @@ def phase_train(work, k2_step_ms):
           f"{[round(v, 1) for v in f32_state['logger_data']['loss']]}")
     print(f"[train] infer on the resumed bf16 checkpoint: F1 {results[0]['F1']:.4f}, "
           f"SEG {results[0]['SEG']:.4f} (after {iters + 1} steps)")
-    return launches
+    return launches, f32_launches
 
 
 def phase_learn(work):
@@ -662,20 +687,27 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as work:
         phase_reference_checks(work, device)
         torch.cuda.reset_peak_memory_stats()
-        launches = phase_main_path(work)
-        launches["conv3x3_dw"] = phase_train(work, k2[torch.bfloat16]["ms"])
+        infer_launches = phase_main_path(work)
+        k2_bf16, k2_f32 = phase_train(work, k2[torch.bfloat16]["ms"])
         phase_learn(work)
-    rows = [
-        {"name": "conv_pass_2d", "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_pass.cu",
-         "replaces": "cellulus_tpu/ops/pallas_conv.py:55", "launches": launches["conv_pass_2d"],
-         **k1},
-        {"name": "conv3x3_dw", "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_dw.cu",
-         "replaces": "cellulus_tpu/ops/pallas_dw.py:64", "launches": launches["conv3x3_dw"],
-         **k2[torch.bfloat16]},
-        {"name": "ball_stats", "route": "cuda", "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
-         "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39", "launches": launches["ball_stats"],
-         **k3},
-    ]
+    k1_launches = {torch.float32: infer_launches["float32"]["conv_pass_2d"],
+                   torch.bfloat16: infer_launches["bfloat16"]["conv_pass_2d"]}
+    k2_launches = {torch.bfloat16: k2_bf16, torch.float32: k2_f32}
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        rows.append({"name": "conv_pass_2d", "dtype": str(dtype).removeprefix("torch."),
+                     "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_pass.cu",
+                     "replaces": "cellulus_tpu/ops/pallas_conv.py:55",
+                     "launches": k1_launches[dtype], **k1[dtype]})
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append({"name": "conv3x3_dw", "dtype": str(dtype).removeprefix("torch."),
+                     "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_dw.cu",
+                     "replaces": "cellulus_tpu/ops/pallas_dw.py:64",
+                     "launches": k2_launches[dtype], **k2[dtype]})
+    rows.append({"name": "ball_stats", "route": "cuda",
+                 "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
+                 "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",
+                 "launches": infer_launches["float32"]["ball_stats"], **k3})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

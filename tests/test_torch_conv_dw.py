@@ -14,6 +14,7 @@ from cellulus_tpu.ops.conv_vjp import conv_valid_pallas
 from cellulus_tpu.ops.pallas_dw import _np_reference_dw, conv3x3_dw as jax_conv3x3_dw
 from cellulus_tpu_torch.ops.conv_dw import conv3x3_dw, conv3x3_dw_plain
 from cellulus_tpu_torch.ops.conv_vjp import conv3x3_valid
+from tests import tf32x3
 
 SHAPES = [
     (2, 12, 14, 1, 8),   # Ci = 1, the first conv of the down pass
@@ -63,6 +64,40 @@ def test_plain_float32_matches_oracle_and_jax_grad(B, H, W, Ci, Co):
     w0 = jnp.zeros((3, 3, Ci, Co), jnp.float32)
     want = jax.grad(lambda w: (_jax_conv(jnp.asarray(x), w) * jnp.asarray(g)).sum())(w0)
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5 * scale)
+
+
+def test_tf32_split_keeps_21_bits():
+    """The split of the kernels' float32 path: hi and lo as the tensor core
+    reads them are TF32 values (low 13 bits zero), |a - hi| is at most half
+    a TF32 ulp (2^-11 relative), and hi + lo is a to 2^-21 relative; hi
+    rounds ties away from zero."""
+    rng = np.random.default_rng(4)
+    a = (rng.standard_normal(4096) * np.exp(rng.uniform(-20, 20, 4096))).astype(np.float32)
+    hi, lo = tf32x3.split(a)
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert (np.abs(hi.astype(np.float64) - a) / np.abs(a)).max() <= 2.0**-11
+    rel = np.abs((hi.astype(np.float64) + lo) - a) / np.abs(a)
+    assert rel.max() <= 2.0**-21
+    # ties away from zero: 1 + 2^-11 lies halfway between two TF32 values
+    tie = np.array([1 + 2.0**-11, -(1 + 2.0**-11)], np.float32)
+    np.testing.assert_array_equal(tf32x3.tf32(tie), [1 + 2.0**-10, -(1 + 2.0**-10)])
+
+
+@pytest.mark.parametrize("B,H,W,Ci,Co", SHAPES)
+def test_3xtf32_filter_gradient_meets_float32_tolerance(B, H, W, Ci, Co):
+    """The premise of the kernel's float32 path: three TF32 products per
+    float32 product agree with XLA's float32 filter gradient (jax.vjp) at the
+    float32 bar of test_plain_float32_matches_oracle_and_jax_grad; one TF32
+    product does not."""
+    x, g = _inputs(B, H, W, Ci, Co, seed=5)
+    w0 = jnp.zeros((3, 3, Ci, Co), jnp.float32)
+    _, vjp = jax.vjp(lambda w: _jax_conv(jnp.asarray(x), w), w0)
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(tf32x3.conv3x3_dw(x, g), want, rtol=1e-5, atol=1e-5 * scale)
+    one = tf32x3.conv3x3_dw(x, g, tf32x3.matmul_1x)
+    assert not np.allclose(one, want, rtol=1e-5, atol=1e-5 * scale)
 
 
 def test_wrapper_checks_its_inputs():

@@ -11,6 +11,7 @@ from cellulus_tpu.models import UNetSpec, init_params
 from cellulus_tpu.models.unet import _conv_pass
 from cellulus_tpu.ops.pallas_conv import conv_pass_2d as jax_conv_pass_2d
 from cellulus_tpu_torch.ops.conv_pass import conv_pass_2d
+from tests import tf32x3
 
 
 @pytest.fixture(scope="module")
@@ -42,6 +43,27 @@ def test_plain_pass_matches_jax(small_params, level, cin, shape):
     ref_pallas = np.asarray(jax_conv_pass_2d(jnp.asarray(x), pp, jnp.float32, interpret=True))
     np.testing.assert_allclose(got.numpy(), ref_xla, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), ref_pallas, atol=1e-5)
+
+
+@pytest.mark.parametrize("level,cin,shape", [
+    ("level0", 1, (2, 20, 24)),
+    ("level1", 8, (1, 18, 22)),
+])
+def test_3xtf32_pass_meets_float32_tolerance(small_params, level, cin, shape):
+    """The premise of the kernel's float32 path: each stage's products as
+    three TF32 products (bias, ReLU and float32 storage between stages)
+    agree with the JAX package's float32 pass, XLA and the Pallas kernel in
+    interpret mode, at the float32 bar of test_plain_pass_matches_jax; one
+    TF32 product does not."""
+    pp = small_params["down"][level]
+    x = np.random.default_rng(7).random((*shape, cin), np.float32)
+    ref_xla = np.asarray(_conv_pass(jnp.asarray(x), pp, 2, jnp.float32))
+    ref_pallas = np.asarray(jax_conv_pass_2d(jnp.asarray(x), pp, jnp.float32, interpret=True))
+    got = tf32x3.conv_pass(x, pp)
+    np.testing.assert_allclose(got, ref_xla, atol=1e-5)
+    np.testing.assert_allclose(got, ref_pallas, atol=1e-5)
+    one = tf32x3.conv_pass(x, pp, tf32x3.matmul_1x)
+    assert not np.allclose(one, ref_xla, atol=1e-5)
 
 
 def test_plain_pass_bfloat16_rounds_like_the_kernel(small_params):
