@@ -11,7 +11,9 @@ Replaces the TPU kernel
 ``cellulus_tpu/ops/pallas_mean_shift.py:ball_stats_padded``. On CUDA tensors
 :func:`ball_stats` launches ``csrc/ball_stats.cu`` (design and bound in its
 header); on CPU tensors it runs :func:`ball_stats_plain`, the chunked
-matmul form of ``cellulus_tpu/ops/mean_shift.py:_make_ball_stats``.
+matmul form of ``cellulus_tpu/ops/mean_shift.py:_make_ball_stats``. The
+mean-shift fit does not call it: it runs whole in one launch
+(:mod:`~cellulus_tpu_torch.ops.mean_shift_fit`).
 """
 
 from __future__ import annotations
@@ -25,12 +27,19 @@ from ..utils import kernels
 
 MAX_DIM = 8
 
+# every C entry point of csrc/ball_stats.cu (the library is loaded once)
 _SIGNATURES = {
     "ball_stats_launch": (
         [ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3
         + [ctypes.c_void_p] * 3,
         ctypes.c_int,
     ),
+    "mean_shift_fit_launch": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p] * 5,
+        ctypes.c_int,
+    ),
+    "mean_shift_fit_plan": ([ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
 }
 
 

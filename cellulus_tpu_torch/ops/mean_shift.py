@@ -17,10 +17,10 @@ Port of the default, monolithic path of ``cellulus_tpu/ops/mean_shift.py``
 - fit on a ``reduction_probability`` subsample drawn on the host with numpy
   exactly as the JAX package draws it, predict on all points.
 
-Every fit iteration and the recount go through
-:func:`~cellulus_tpu_torch.ops.ball_stats.ball_stats` (the CUDA kernel on
-the card). The fit loop is a Python loop with one device-to-host check of
-``halted.all()`` per iteration.
+The fit and the recount are one call of
+:func:`~cellulus_tpu_torch.ops.mean_shift_fit.mean_shift_fit`: on the card,
+one kernel launch per clustering problem that loops on the device, with no
+host check between iterations (the JAX package's single dispatch).
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .ball_stats import ball_stats, point_set
+from .ball_stats import point_set
+from .mean_shift_fit import mean_shift_fit
 
 
 def bin_seeds(X: np.ndarray, bin_size: float, min_bin_freq: int = 1) -> np.ndarray:
@@ -42,41 +43,9 @@ def bin_seeds(X: np.ndarray, bin_size: float, min_bin_freq: int = 1) -> np.ndarr
     return (uniq[counts >= min_bin_freq] * bin_size).astype(X.dtype)
 
 
-def _fit(points, seeds: torch.Tensor, bw2: float, stop_thresh: float, max_iter: int):
-    """Iterate all seeds; return ``(centers, n_final, frozen)``."""
-    S = seeds.shape[0]
-    dev = seeds.device
-    centers = seeds
-    prev = torch.full_like(seeds, float("inf"))
-    n_final = torch.zeros((S,), dtype=torch.float32, device=dev)
-    frozen = torch.zeros((S,), dtype=torch.bool, device=dev)
-    halted = frozen.clone()
-    it = 0
-    while it < max_iter and not bool(halted.all()):
-        counts, sums = ball_stats(centers, points, bw2)
-        means = sums / torch.clamp(counts, min=1.0)[:, None]
-        empty = counts == 0
-        shift = torch.linalg.vector_norm(means - centers, dim=1)
-        newly_done = empty | (shift < stop_thresh)
-        new_centers = torch.where((halted | empty)[:, None], centers, means)
-        # exact period-2 cycle: the trajectory repeats, so move the seed to
-        # the phase it would hold after the remaining iterations and halt it
-        cycle = (new_centers == prev).all(dim=1) & ~halted & ~newly_done
-        final_pos = new_centers if (max_iter - (it + 1)) % 2 == 0 else centers
-        new_centers = torch.where(cycle[:, None], final_pos, new_centers)
-        n_final = torch.where(frozen, n_final, counts)
-        frozen = frozen | newly_done
-        halted = halted | newly_done | cycle
-        prev, centers = centers, new_centers
-        it += 1
-    return centers, n_final, frozen
-
-
-def _dedupe(points, centers, n_final, frozen, bw2: float):
-    """Recount + sklearn duplicate suppression; return the kept centers
-    ``(K, d)`` in sklearn's label order."""
-    counts, _ = ball_stats(centers, points, bw2)
-    n_final = torch.where(frozen, n_final, counts)
+def _dedupe(centers, n_final, bw2: float):
+    """sklearn duplicate suppression; return the kept centers ``(K, d)`` in
+    sklearn's label order."""
     keep = (n_final > 0).cpu().numpy()
     c_np = centers.cpu().numpy()
     sort_counts = np.where(keep, n_final.cpu().numpy(), -1.0)
@@ -149,10 +118,10 @@ def mean_shift_fit_predict(
     dev = torch.device(device)
     X_fit_t = torch.from_numpy(np.ascontiguousarray(X_fit)).to(dev)
     points = point_set(X_fit_t, torch.ones(len(X_fit), dtype=torch.bool, device=dev))
-    centers, n_final, frozen = _fit(
-        points, torch.from_numpy(seeds).to(dev), bw2, stop_thresh, max_iter
+    centers, n_final, _, _ = mean_shift_fit(
+        torch.from_numpy(seeds).to(dev), points, bw2, stop_thresh, max_iter
     )
-    kept = _dedupe(points, centers, n_final, frozen, bw2)
+    kept = _dedupe(centers, n_final, bw2)
     labels = _predict(torch.from_numpy(X).to(dev), kept, bw2)
     return labels.cpu().numpy().astype(np.int32)
 

@@ -18,21 +18,32 @@ Phases, each failing the run (non-zero exit) if it fails:
    times;
 5. K3, the mean-shift ball statistics: the kernel against its plain version
    on random points and on points lying exactly on the ball boundary;
-6. reference checks: the full-width U-Net on the card against the CPU
+6. K3-fit, the whole mean-shift fit in one launch: bit-identical over two
+   launches, over a fit of every other seed (the sums do not depend on the
+   seed groups) and to ``tests/mean_shift_fit_emu.py`` on four small
+   fixtures (d = 2, 3, 5, and points beyond shared memory);
+   one step against the plain version; labels against the plain version on
+   two clustered fixtures; timed against the one-iteration route
+   (``mean_shift_fit_plain`` over ``ball_stats``) and the plain version on a
+   long fit (87,000 uniform points, 300 iterations at most) and on K3's
+   input run as a fit;
+7. reference checks: the full-width U-Net on the card against the CPU
    (forward, and every gradient of the training path), mean-shift labels,
    and ``conv_pass_2d`` refusing to run under autograd;
-7. the infer main path: ``cellulus_tpu_torch.infer`` with the default
+8. the infer main path: ``cellulus_tpu_torch.infer`` with the default
    inference settings (float32), on a synthetic 2-sample 512x512 uint16
    container and seeded random weights at the full width of ``examples/2d``,
    through predict -> detect -> segment -> evaluate, then again at
-   ``examples/2d/infer.toml``'s bfloat16; each run must launch K1 18 times
-   and K3;
-8. the train main path: ``cellulus_tpu_torch.train`` at the full width of
+   ``examples/2d/infer.toml``'s bfloat16; each run must launch K1 18 times,
+   the fit kernel once per sample and ``ball_stats`` never; after the
+   float32 run, sample 0's detect is timed in parts (``[detect]``) and its
+   fit input is K3-fit's third timed input;
+9. the train main path: ``cellulus_tpu_torch.train`` at the full width of
    ``examples/2d/train.toml`` (bf16, elastic on, device pairs) for 20 steps,
    K2 launched 6 times a step, a resume, 3 float32 steps, then infer on the
    trained checkpoint;
-9. learn: a small recipe trains 400 steps and must beat its step-0 F1;
-10. the kernels line (JSON, one row per kernel and input type), then the
+10. learn: a small recipe trains 400 steps and must beat its step-0 F1;
+11. the kernels line (JSON, one row per kernel and input type), then the
     last line
     ``{"ok": true, "device": {...}}``.
 
@@ -43,6 +54,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import os
@@ -58,10 +70,18 @@ import cellulus_tpu_torch
 from cellulus_tpu_torch.configs import ExperimentConfig
 from cellulus_tpu_torch.io import zarr
 from cellulus_tpu_torch.models import UNet, compute_geometry
+from cellulus_tpu_torch.detect import detect_sample, mean_center_embeddings, sample_rng
+from cellulus_tpu_torch.ops import mean_shift as msops
 from cellulus_tpu_torch.ops.ball_stats import ball_stats, ball_stats_plain, point_set
 from cellulus_tpu_torch.ops.conv_dw import conv3x3_dw, conv3x3_dw_design, conv3x3_dw_plain
 from cellulus_tpu_torch.ops.conv_pass import conv_pass_2d, conv_pass_2d_design, conv_pass_2d_plain
 from cellulus_tpu_torch.ops.mean_shift import mean_shift_fit_predict
+from cellulus_tpu_torch.ops.mean_shift_fit import (
+    mean_shift_fit,
+    mean_shift_fit_plain,
+    mean_shift_fit_plan,
+)
+from cellulus_tpu_torch.ops.otsu import threshold_otsu
 from cellulus_tpu_torch.utils import kernels
 
 # H100 SXM published peaks (dense): HBM bytes/s; the least time of K1 and
@@ -84,6 +104,10 @@ TRAIN_BATCH = 8
 DEVICE = "cuda:0"
 OBJECT_SIZE = 40
 IMAGE_SIZE = 512
+# the long fit: the reference's trained 2D fit scale (87k fit points), here
+# uniform in the image so that seeds wander; and K3's (seeds, points) as a fit
+LONG_FIT_POINTS = 87000
+K3_FIT_SHAPE = (1024, 16384)
 
 
 def fail(msg: str) -> None:
@@ -422,6 +446,281 @@ def phase_ball_stats(device):
             "bound_by": bound_by, "max_abs_err": float(sum_err[exact].max())}
 
 
+def _load_fit_emulation():
+    """tests/mean_shift_fit_emu.py, loaded by path (numpy only)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "mean_shift_fit_emu.py")
+    spec = importlib.util.spec_from_file_location("mean_shift_fit_emu", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _fit_problem(X, seeds, bandwidth, device, valid=None):
+    """``(seeds, points, bw2, stop)`` on the card, as mean_shift_fit_predict
+    prepares them."""
+    bw = np.float32(bandwidth)
+    valid = np.ones(len(X), bool) if valid is None else valid
+    points = point_set(torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device),
+                       torch.from_numpy(valid).to(device))
+    return (torch.from_numpy(np.asarray(seeds, np.float32)).to(device), points,
+            float(bw * bw), float(np.float32(1e-3) * bw))
+
+
+def _near_boundary(centers, points, bw2):
+    """Per center: does a valid point lie within rounding of its ball's
+    boundary (float64 distance within 1e-6 (|c|^2 + |x|^2) + 1e-5 bw^2)?"""
+    x = points.x.double()
+    xn = (x * x).sum(1)
+    out = torch.zeros(len(centers), dtype=torch.bool, device=centers.device)
+    for i in range(0, len(centers), 64):
+        c = centers[i:i + 64].double()
+        cn = (c * c).sum(1)
+        d2 = ((c[:, None, :] - x[None]) ** 2).sum(-1)
+        tol = 1e-6 * (cn[:, None] + xn[None]) + 1e-5 * bw2
+        out[i:i + 64] = (((d2 - bw2).abs() <= tol) & points.valid[None]).any(1)
+    return out
+
+
+def _fit_step_check(name, seeds, points, bw2, stop):
+    """One fit step (max_iter = 1, then the recount) against the plain
+    version. A seed is left out when a point lies within rounding of its
+    ball at the start or at the end, or its shift within 1e-4 bw of the stop
+    threshold: there the two may decide differently, since they sum c.x and
+    the coordinates in other orders. The rest must agree: counts and frozen
+    exactly, centers within rtol 1e-5, atol 1e-4."""
+    got = mean_shift_fit(seeds, points, bw2, stop, 1)
+    ref = mean_shift_fit_plain(seeds, points, bw2, stop, 1)
+    torch.cuda.synchronize()
+    shift = (ref[0] - seeds).norm(dim=1)
+    undecided = (_near_boundary(seeds, points, bw2) | _near_boundary(ref[0], points, bw2)
+                 | _near_boundary(got[0], points, bw2)
+                 | ((shift - stop).abs() <= 1e-4 * math.sqrt(bw2)))
+    ok = ~undecided
+    err = (got[0] - ref[0]).abs()
+    max_err = float(err[ok].max()) if bool(ok.any()) else 0.0
+    if not (bool((err[ok] <= 1e-5 * ref[0][ok].abs() + 1e-4).all())
+            and torch.equal(got[1][ok], ref[1][ok]) and torch.equal(got[2][ok], ref[2][ok])
+            and bool((got[3] == 1).all())):
+        fail(f"mean_shift_fit {name}: one step differs from the plain version "
+             f"(max center err {max_err:.3g} on {int(ok.sum())} seeds)")
+    return max_err, int(undecided.sum())
+
+
+def _fit_bound(S, N, d, n_iter, frozen, inball):
+    """Least time of a fit whose seeds were live ``n_iter`` iterations: each
+    live (seed, point) pair's distance and test (2d + 4 FLOP), the recount
+    of the never-frozen seeds, and d + 1 adds per point in a ball."""
+    pairs = (int(n_iter.sum()) + int((~frozen).sum())) * N
+    ops = pairs * (2 * d + 4) + inball * (d + 1)
+    nbytes = 4 * S * d + N * (4 * d + 4 + 1) + S * (4 * d + 4 + 1 + 4)
+    by_ops = ops / CUDA_CORE_F32_OPS >= nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(ops / CUDA_CORE_F32_OPS, nbytes / HBM_BYTES_PER_S), (
+        "operations" if by_ops else "bytes")
+
+
+def time_fit(name, seeds, points, bw2, stop, max_iter):
+    """The fit kernel against the one-iteration route (``ball_stats`` each
+    iteration, the fit before the one-launch kernel) and the plain version
+    on one input: determinism, one step against the plain version, times
+    and the bound."""
+    S, d = seeds.shape
+    N = int(points.valid.sum())
+    out = mean_shift_fit(seeds, points, bw2, stop, max_iter)
+    again = mean_shift_fit(seeds, points, bw2, stop, max_iter)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        fail(f"mean_shift_fit {name}: two launches on the same inputs differ")
+    centers, n_final, frozen, n_iter = out
+    if not (torch.isfinite(centers).all() and bool((n_final >= 0).all())
+            and int(n_iter.max()) <= max_iter):
+        fail(f"mean_shift_fit {name}: centers finite {bool(torch.isfinite(centers).all())}, "
+             f"n_iter max {int(n_iter.max())}")
+    max_err, undecided = _fit_step_check(name, seeds, points, bw2, stop)
+
+    # the points that lie in a ball, over the live iterations, counted on
+    # the one-iteration route's run (its sums follow the same trajectories
+    # up to their order)
+    calls = []
+
+    def recorded(c, p, b):
+        counts, sums = ball_stats(c, p, b)
+        calls.append(counts)
+        return counts, sums
+
+    _, _, r_frozen, r_iter = mean_shift_fit_plain(seeds, points, bw2, stop, max_iter, recorded)
+    inball = sum(float(cnt[r_iter > i].sum()) for i, cnt in enumerate(calls[:-1]))
+    inball += float(calls[-1][~r_frozen].sum())
+
+    reps = 20 if max_iter * S * N < 1e10 else 5
+    ms = cuda_ms(lambda: mean_shift_fit(seeds, points, bw2, stop, max_iter), reps=reps)
+    route_ms = cuda_ms(lambda: mean_shift_fit_plain(seeds, points, bw2, stop, max_iter, ball_stats),
+                       reps=2)
+    plain_ms = cuda_ms(lambda: mean_shift_fit_plain(seeds, points, bw2, stop, max_iter), reps=2)
+    bound_ms, bound_by = _fit_bound(S, N, d, n_iter, frozen, inball)
+    group, clusters, resident, smem = mean_shift_fit_plan(S, points.x.shape[0], d)
+    print(f"[K3-fit] {name}: S={S} N={N} d={d} max_iter={max_iter}; plan {clusters} clusters "
+          f"of 8 blocks, {group} seeds a group, {resident} points a block in shared memory "
+          f"({smem / 1024:.0f} KB); iterations max {int(n_iter.max())}, sum over seeds "
+          f"{int(n_iter.sum())}, frozen {int(frozen.sum())}/{S}; bit-identical over two "
+          f"launches; one step vs plain: max center err {max_err:.3g} (rtol 1e-5, atol 1e-4; "
+          f"{undecided} seeds at the boundary left out); kernel {ms:.3f} ms a fit, "
+          f"one-iteration route {route_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {len(calls) - 1} route iterations", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "route_ms": route_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max_err,
+            "out": out}
+
+
+def _same_partition(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or not ((a == -1) == (b == -1)).all():
+        return False
+    pairs = set(zip(a.tolist(), b.tolist()))
+    return len(pairs) == len(set(a.tolist())) == len(set(b.tolist()))
+
+
+def phase_fit(device):
+    """K3-fit: the whole mean-shift fit in one launch."""
+    emu = _load_fit_emulation()
+    rng = np.random.default_rng(8)
+    # (N, d, S, extent, bandwidth, max_iter, share of valid points): the
+    # small fixture, then d = 3 and d = 5 (8-seed groups), then more points
+    # than the cluster's shared memory holds (the rest read from L2)
+    for N, d, S, extent, bw, max_iter, p_valid in (
+            (2048, 2, 64, 64, 4.0, 50, 1.0), (3000, 3, 100, 30, 4.0, 30, 1.0),
+            (3000, 5, 50, 30, 6.0, 20, 1.0), (200000, 2, 40, 512, 20.0, 5, 0.9)):
+        X = rng.uniform(0, extent, (N, d)).astype(np.float32)
+        valid = rng.random(N) < p_valid
+        seeds, points, bw2, stop = _fit_problem(X, X[rng.choice(N, S, replace=False)], bw, device,
+                                                valid=valid)
+        got = [t.cpu().numpy() for t in mean_shift_fit(seeds, points, bw2, stop, max_iter)]
+        want = emu.fit(seeds.cpu().numpy(), X, points.x_norm.cpu().numpy(), valid, bw2, stop,
+                       max_iter)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            fail(f"mean_shift_fit differs from tests/mean_shift_fit_emu.py at N={N} d={d}")
+        print(f"[K3-fit] S={S} N={N} d={d} max_iter={max_iter}, {valid.mean():.0%} valid: "
+              f"bit-identical to the emulation (iterations max {got[3].max()}, frozen "
+              f"{int(got[2].sum())}/{S}; plan {mean_shift_fit_plan(S, N, d)})", flush=True)
+
+    # labels against the plain version: three clusters (2D), forty (3D)
+    rng = np.random.default_rng(1)
+    X3 = np.concatenate([rng.normal(c, 0.6, size=(60, 2)) for c in
+                         ([0.0, 0.0], [8.0, 8.0], [0.0, 9.0])]).astype(np.float32)
+    rng = np.random.default_rng(7)
+    centers40 = rng.uniform(0, 100, size=(40, 3)).astype(np.float32)
+    X40 = np.concatenate([rng.normal(c, 0.8, size=(50, 3)) for c in centers40]
+                         + [rng.uniform(-50, -40, size=(5, 3))]).astype(np.float32)
+    for name, Xc, bw in (("3 clusters", X3, 2.0), ("40 clusters", X40, 3.0)):
+        mean_shift_fit.launches = 0
+        gpu = mean_shift_fit_predict(Xc, bw, None, device=device)
+        launches = mean_shift_fit.launches
+        cpu = mean_shift_fit_predict(Xc, bw, None, device="cpu")
+        if launches != 1 or not _same_partition(gpu, cpu):
+            fail(f"mean_shift_fit {name}: labels differ from the plain version's "
+                 f"({launches} launches)")
+        print(f"[K3-fit] {name}: labels equal the plain version's as a partition "
+              f"({len(set(gpu.tolist()) - {-1})} clusters, ids equal: {np.array_equal(gpu, cpu)})")
+
+    # a long fit: uniform points at the reference's trained 2D fit scale
+    rng = np.random.default_rng(9)
+    X = rng.uniform(0, IMAGE_SIZE, (LONG_FIT_POINTS, 2)).astype(np.float32)
+    bw = 0.5 * OBJECT_SIZE
+    seeds, points, bw2, stop = _fit_problem(X, msops.bin_seeds(X, bw), bw, device)
+    long_fit = time_fit("long fit", seeds, points, bw2, stop, 300)
+    half = mean_shift_fit(seeds[::2].contiguous(), points, bw2, stop, 300)
+    if not all(torch.equal(h, f[::2]) for h, f in zip(half, long_fit["out"])):
+        fail("mean_shift_fit: a fit of every other seed differs from the full fit")
+    print("[K3-fit] long fit: every other seed fitted alone is bit-identical to the full fit")
+
+    # K3's input, run as a fit
+    rng = np.random.default_rng(2)
+    S, N = K3_FIT_SHAPE
+    c = rng.uniform(0, IMAGE_SIZE, (S, 2)).astype(np.float32)
+    X = rng.uniform(0, IMAGE_SIZE, (N, 2)).astype(np.float32)
+    seeds, points, bw2, stop = _fit_problem(X, c, bw, device, valid=rng.random(N) > 0.05)
+    k3_fit = time_fit("K3 input", seeds, points, bw2, stop, 300)
+    half = mean_shift_fit(seeds[1::2].contiguous(), points, bw2, stop, 300)
+    if not all(torch.equal(h, f[1::2]) for h, f in zip(half, k3_fit["out"])):
+        fail("mean_shift_fit: a fit of every other seed differs from the full fit (K3 input)")
+
+
+def _route_fit(seeds, points, bw2, stop, max_iter):
+    """The one-iteration route, the fit before the one-launch kernel:
+    ``ball_stats`` every iteration."""
+    return mean_shift_fit_plain(seeds, points, bw2, stop, max_iter, ball_stats)
+
+
+def phase_detect(container, device, detect_seconds):
+    """Sample 0's detect in parts, with the port's own functions on the
+    container the float32 main path left (its default settings): the read,
+    host preparation (Otsu threshold, mean-centring, points = coordinate
+    grid + mask + subsample, bin seeds), transfers to the card, fit, dedupe,
+    predict and the labels' transfer back; the whole ``detect_sample`` with
+    the fit kernel and with the one-iteration route, in turns; the rest of
+    the main path's detect stage (the zarr read and writes). Then the fit
+    kernel timed on sample 0's fit input."""
+    ic = infer_config(container, "unused.pth", MODEL, device=str(device)).inference_config
+    ic.bandwidth = 0.5 * OBJECT_SIZE
+    parts = {k: [] for k in ("read", "otsu", "centre", "points", "bin_seeds", "to_device",
+                             "fit", "dedupe", "predict", "to_host")}
+    for _ in range(5):
+        t = [time.perf_counter()]
+        emb = np.asarray(zarr.open(container, "r")["embeddings"][0], dtype=np.float32)
+        t.append(time.perf_counter())
+        threshold = threshold_otsu(emb[-1])
+        t.append(time.perf_counter())
+        mask = emb[-1] < threshold
+        mean_center_embeddings(emb, mask)
+        t.append(time.perf_counter())
+        X = msops.add_coordinate_grid(emb[:2]).reshape(2, -1).T[mask.ravel()]
+        X_fit = X[sample_rng(ic.seed, 0).random(len(X)) < ic.reduction_probability]
+        t.append(time.perf_counter())
+        seeds_np = msops.bin_seeds(X_fit, bin_size=ic.bandwidth)
+        t.append(time.perf_counter())
+        seeds, points, bw2, stop = _fit_problem(X_fit, seeds_np, ic.bandwidth, device)
+        X_t = torch.from_numpy(X).to(device)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        centers, n_final, _, _ = mean_shift_fit(seeds, points, bw2, stop,
+                                                ic.mean_shift_max_iterations)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        kept = msops._dedupe(centers, n_final, bw2)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        labels = msops._predict(X_t, kept, bw2)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        labels.cpu().numpy()
+        t.append(time.perf_counter())
+        for key, a, b in zip(parts, t[:-1], t[1:]):
+            parts[key].append(1e3 * (b - a))
+    median = {k: float(np.median(v)) for k, v in parts.items()}
+
+    whole = {"kernel": [], "route": []}
+    for order in (("route", "kernel"), ("kernel", "route")) * 3:
+        for which in order:
+            msops.mean_shift_fit = mean_shift_fit if which == "kernel" else _route_fit
+            try:
+                t0 = time.perf_counter()
+                detect_sample(emb, ic, 2, sample_rng(ic.seed, 0), device)
+                whole[which].append(1e3 * (time.perf_counter() - t0))
+            finally:
+                msops.mean_shift_fit = mean_shift_fit
+    whole = {k: float(np.median(v)) for k, v in whole.items()}
+    stage_ms = 1e3 * detect_seconds / 2
+    print(f"[detect] sample 0 in parts, median of 5 (ms): "
+          f"{json.dumps({k: round(v, 3) for k, v in median.items()})}, sum "
+          f"{sum(median.values()):.2f} ms; {len(X)} foreground points, {len(X_fit)} fitted, "
+          f"{len(seeds_np)} seeds, {len(kept)} clusters", flush=True)
+    print(f"[detect] detect_sample, median of 6 in turns: {whole['kernel']:.2f} ms with the fit "
+          f"kernel, {whole['route']:.2f} ms with the one-iteration route; the main path's "
+          f"detect stage {stage_ms:.1f} ms a sample, so {stage_ms - whole['kernel']:.1f} ms a "
+          f"sample outside detect_sample (the zarr read and writes)", flush=True)
+    return time_fit("main input (sample 0)", seeds, points, bw2, stop,
+                    ic.mean_shift_max_iterations)
+
+
 def phase_reference_checks(work, device):
     """Small inputs where the card must agree with the port's CPU path."""
     net = save_random_checkpoint(os.path.join(work, "small.pth"), seed=3, **MODEL)
@@ -472,17 +771,19 @@ def phase_reference_checks(work, device):
 
 def _infer_main(work, container, checkpoint, precision):
     """One run of the infer main path at ``precision``, with the kernel
-    counts set to 0 just before it; returns its launches."""
+    counts set to 0 just before it; returns its launches and stage seconds."""
     config = infer_config(container, checkpoint, MODEL, device="cuda:0", precision=precision)
     conv_pass_2d.launches = 0
     ball_stats.launches = 0
+    mean_shift_fit.launches = 0
     stage_seconds = {}
     t0 = time.perf_counter()
     with contextlib.chdir(work):  # evaluate writes its results files to the working directory
         results = cellulus_tpu_torch.infer(config, stage_seconds)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"conv_pass_2d": conv_pass_2d.launches, "ball_stats": ball_stats.launches}
+    launches = {"conv_pass_2d": conv_pass_2d.launches, "mean_shift_fit": mean_shift_fit.launches,
+                "ball_stats": ball_stats.launches}
 
     f = zarr.open(container, "r")
     emb = f["embeddings"][...]
@@ -505,20 +806,23 @@ def _infer_main(work, container, checkpoint, precision):
     if launches["conv_pass_2d"] != expected_k1:
         fail(f"{precision}: conv_pass_2d launched {launches['conv_pass_2d']} times, "
              f"expected {expected_k1}")
-    if launches["ball_stats"] <= 0:
-        fail(f"{precision}: ball_stats never launched on the main path")
+    # one fit per (sample, bandwidth), the one-iteration kernel never
+    if launches["mean_shift_fit"] != 2 or launches["ball_stats"] != 0:
+        fail(f"{precision}: mean_shift_fit launched {launches['mean_shift_fit']} times (expected "
+             f"2), ball_stats {launches['ball_stats']} (expected 0)")
     print(f"[main] {precision} stages (s): "
           f"{json.dumps({k: round(v, 3) for k, v in stage_seconds.items()})}, total {wall:.2f}s")
     print(f"[main] {precision} instances per sample {instances}, F1 {results[0]['F1']:.4f}, "
           f"SEG {results[0]['SEG']:.4f} (random weights), launches {json.dumps(launches)}, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return launches
+    return launches, stage_seconds
 
 
 def phase_main_path(work):
     """The infer main path with the default inference settings (float32),
-    then again at examples/2d/infer.toml's ``precision = "bfloat16"``.
-    Returns the launches of each run, by precision."""
+    sample 0's detect in parts, then the main path again at
+    examples/2d/infer.toml's ``precision = "bfloat16"``. Returns the launches
+    of each run, by precision, and the fit kernel's timing on sample 0."""
     container = write_blob_container(os.path.join(work, "data.zarr"), 2, IMAGE_SIZE, seed=5)
     checkpoint = os.path.join(work, "weights.pth")
     save_random_checkpoint(checkpoint, seed=0, **MODEL)
@@ -526,8 +830,11 @@ def phase_main_path(work):
     if (ic.crop_size, ic.tile_batch_size, ic.num_infer_iterations, ic.p_salt_pepper,
             ic.precision) != ([CROP, CROP], TILE_BATCH, NUM_INFER_ITERATIONS, 0.01, "float32"):
         fail("the default inference settings differ from the ones this script assumes")
-    return {precision: _infer_main(work, container, checkpoint, precision)
-            for precision in ("float32", "bfloat16")}
+    launches, stage_seconds = _infer_main(work, container, checkpoint, "float32")
+    launches = {"float32": launches}
+    fit = phase_detect(container, torch.device("cuda:0"), stage_seconds["detect"])
+    launches["bfloat16"] = _infer_main(work, container, checkpoint, "bfloat16")[0]
+    return launches, fit
 
 
 def train_config(container, model, **train):
@@ -684,10 +991,11 @@ def main() -> None:
     k1 = phase_conv_pass(device)
     k2 = phase_conv_dw(device)
     k3 = phase_ball_stats(device)
+    phase_fit(device)
     with tempfile.TemporaryDirectory() as work:
         phase_reference_checks(work, device)
         torch.cuda.reset_peak_memory_stats()
-        infer_launches = phase_main_path(work)
+        infer_launches, k3_fit = phase_main_path(work)
         k2_bf16, k2_f32 = phase_train(work, k2[torch.bfloat16]["ms"])
         phase_learn(work)
     k1_launches = {torch.float32: infer_launches["float32"]["conv_pass_2d"],
@@ -708,6 +1016,11 @@ def main() -> None:
                  "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
                  "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",
                  "launches": infer_launches["float32"]["ball_stats"], **k3})
+    k3_fit.pop("out")
+    rows.append({"name": "mean_shift_fit", "route": "cuda",
+                 "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
+                 "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",
+                 "launches": infer_launches["float32"]["mean_shift_fit"], **k3_fit})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,15 @@
-"""Check and time the port's tensor-core kernels K1 and K2 on one GPU, without
-the rest of ``chip_smoke.py``: a short run for kernel work.
+"""Check and time the port's kernels on one GPU, without the rest of
+``chip_smoke.py``: a short run for kernel work.
 
     python3 scripts/torch_kernel_check.py          # K1 and K2
     python3 scripts/torch_kernel_check.py k1       # or k2
+    python3 scripts/torch_kernel_check.py fit      # K3 and the one-launch fit
     python3 scripts/torch_kernel_check.py tiles    # K1 at every tile that fits
 
 ``k1`` and ``k2`` are ``chip_smoke.py``'s ``[K1]`` and ``[K2]`` phases (each
 kernel against its plain version at the full-width shapes, timed beside its
-plain version, cuDNN and its bound). ``tiles`` launches K1 through its C
+plain version, cuDNN and its bound); ``fit`` is its ``[K3]`` and ``[K3-fit]``
+phases (without the main path's input). ``tiles`` launches K1 through its C
 entry point at every square tile that fits shared memory, with the cost its
 tile choice assigns, to see how the tile size sets its speed; every tile must
 give the bits of the tile the wrapper picks. Exits non-zero on a failure.
@@ -74,6 +76,9 @@ def main() -> None:
         smoke.phase_conv_pass(device)
     if what in ("all", "k2"):
         smoke.phase_conv_dw(device)
+    if what == "fit":
+        smoke.phase_ball_stats(device)
+        smoke.phase_fit(device)
     if what == "tiles":
         sweep_tiles(device)
 
