@@ -1,10 +1,10 @@
 """Detect stage: embeddings zarr -> instance detections zarr.
 
 Port of the default branch of ``cellulus_tpu/detect.py:detect_sample``
-(mean shift, no seeds): a threshold on the uncertainty channel (fixed,
-quantile or Otsu, on the host), the foreground mask ``std < threshold``,
-mean-centred embeddings, then per bandwidth ``bandwidth / 2**k`` a mean-shift
-segmentation of the absolute embeddings on the device.
+(mean shift, no seeds), 2D and 3D: a threshold on the uncertainty channel
+(fixed, quantile or Otsu, on the host), the foreground mask ``std <
+threshold``, mean-centred embeddings, then per bandwidth ``bandwidth /
+2**k`` a mean-shift segmentation of the absolute embeddings on the device.
 
 Outputs (the JAX package's layouts): ``detection`` ``(s, num_bandwidths,
 *spatial)`` uint16, ``binary-segmentation`` ``(s, 1, *spatial)`` uint16 and

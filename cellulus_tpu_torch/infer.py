@@ -1,7 +1,7 @@
 """Inference orchestrator: predict -> detect -> segment -> evaluate.
 
-Port of ``cellulus_tpu/infer.py:infer`` (staged path). Derives the
-mean-shift bandwidth and the minimum instance size from ``object_size``,
+Port of ``cellulus_tpu/infer.py:infer`` (staged path), 2D and 3D. Derives
+the mean-shift bandwidth and the minimum instance size from ``object_size``,
 loads the ``.pth`` checkpoint named by ``model_config.checkpoint``, and runs
 each stage whose dataset config is present, on
 ``inference_config.device`` (``"cuda:0"`` by default).
@@ -50,14 +50,15 @@ def infer(
         torch.backends.cuda.matmul.allow_tf32 = False
 
     meta = DatasetMetaData.from_dataset_config(ic.dataset_config)
-    if meta.num_spatial_dims != 2:
-        raise NotImplementedError(
-            f"{meta.num_spatial_dims}D data is not ported yet (ROADMAP: M8, 3D main path)"
-        )
     if ic.bandwidth is None:
         ic.bandwidth = 0.5 * experiment_config.object_size
     if ic.min_size is None:
-        ic.min_size = int(0.1 * np.pi * (experiment_config.object_size**2) / 4)
+        # a tenth of the area (2D) or volume (3D) of an object_size disk/ball
+        object_size = experiment_config.object_size
+        if meta.num_spatial_dims == 2:
+            ic.min_size = int(0.1 * np.pi * (object_size**2) / 4)
+        else:
+            ic.min_size = int(0.1 * 4.0 / 3.0 * np.pi * (object_size**3) / 8)
 
     model = unet_from_config(
         model_config, in_channels=meta.num_channels, num_spatial_dims=meta.num_spatial_dims

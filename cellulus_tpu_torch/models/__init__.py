@@ -1,6 +1,6 @@
 """The object-centric-embedding U-Net, its geometry and its weight bridge."""
 
-from .convert import load_checkpoint, state_dict_from_jax_params
+from .convert import load_checkpoint, load_state_dict, state_dict_from_jax_params
 from .geometry import UNetGeometry, compute_geometry
 from .unet import (
     UNet,
@@ -16,6 +16,7 @@ __all__ = [
     "compute_geometry",
     "init_unet_",
     "load_checkpoint",
+    "load_state_dict",
     "select_and_add_coordinates",
     "state_dict_from_jax_params",
     "tta_embeddings",

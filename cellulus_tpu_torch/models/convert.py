@@ -2,11 +2,16 @@
 
 - :func:`state_dict_from_jax_params` turns the JAX package's params pytree
   (``{"down": {"level<l>": {"conv<i>": {"w", "b"}}}, "up": ..., "head":
-  ...}``, as numpy arrays, weights ``(*K, C_in, C_out)``) into the port's
-  funlib-named state_dict (weights ``(C_out, C_in, *K)``).
+  ...}`` and, with ``constant_upsample=False``, ``"up_tconv"``, as numpy
+  arrays, weights ``(*K, C_in, C_out)``) into the port's funlib-named
+  state_dict (conv weights ``(C_out, C_in, *K)``, transposed-conv weights
+  ``(C_in, C_out, *K)`` at ``backbone.r_up.0.<l>.up``), 2D or 3D.
+- :func:`load_state_dict` loads one into a model strictly, refusing a
+  state_dict whose upsampling mode is not the model's, as the JAX package's
+  ``forward`` does (``cellulus_tpu/models/unet.py:359-372``).
 - :func:`load_checkpoint` reads a reference-format ``.pth`` (the dict the
   reference training loop saves, weights under ``model_state_dict``) into a
-  model with ``load_state_dict(strict=True)``.
+  model through :func:`load_state_dict`.
 
 The JAX package's own ``.ckpt`` files are flax msgpack and are not read
 here: convert them once with the JAX package's
@@ -22,21 +27,16 @@ import numpy as np
 import torch
 
 
-def _conv(conv_params: Dict[str, Any], prefix: str, out: dict) -> None:
+def _conv(conv_params: Dict[str, Any], prefix: str, out: dict, transposed=False) -> None:
     w = np.asarray(conv_params["w"], dtype=np.float32)  # (*K, C_in, C_out)
     k = w.ndim - 2
-    perm = (k + 1, k) + tuple(range(k))
+    perm = ((k, k + 1) if transposed else (k + 1, k)) + tuple(range(k))
     out[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(w.transpose(perm)))
     out[f"{prefix}.bias"] = torch.from_numpy(np.array(conv_params["b"], dtype=np.float32))
 
 
 def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Funlib-named state_dict of a JAX params pytree."""
-    if "up_tconv" in params:
-        raise NotImplementedError(
-            "transposed-conv upsampling weights are not ported yet "
-            "(ROADMAP: port queue, constant_upsample=False)"
-        )
     down, up = params["down"], params["up"]
     if len(up) != len(down) - 1:
         raise ValueError(
@@ -51,14 +51,38 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor
         for i in range(len(up[f"level{level}"])):
             _conv(up[f"level{level}"][f"conv{i}"],
                   f"backbone.r_conv.0.{level}.conv_pass.{2 * i}", sd)
+    for level in range(len(params.get("up_tconv", {}))):
+        _conv(params["up_tconv"][f"level{level}"], f"backbone.r_up.0.{level}.up", sd,
+              transposed=True)
     _conv(params["head"]["conv0"], "head.0", sd)
     _conv(params["head"]["conv1"], "head.2", sd)
     return sd
 
 
+def load_state_dict(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
+    """``model.load_state_dict(state_dict, strict=True)``, after refusing a
+    state_dict whose transposed-conv weights disagree with the model's
+    ``constant_upsample``: such weights are never dropped or invented."""
+    has_tconv = any(k.startswith("backbone.r_up.") for k in state_dict)
+    if not model.constant_upsample and not has_tconv:
+        raise ValueError(
+            "model has constant_upsample=False but the weights carry no "
+            "transposed-conv upsample weights (backbone.r_up.*): the checkpoint "
+            "was trained with nearest-neighbor upsampling (set constant_upsample = true)"
+        )
+    if model.constant_upsample and has_tconv:
+        raise ValueError(
+            "the weights carry transposed-conv upsample weights (backbone.r_up.*) "
+            "but the model has constant_upsample=True: running would silently ignore "
+            "the checkpoint's upsample weights (set constant_upsample = false)"
+        )
+    model.load_state_dict(state_dict, strict=True)
+
+
 def load_checkpoint(path, model: torch.nn.Module) -> Dict[str, Any]:
-    """Load a reference-format ``.pth`` into ``model`` (strict); return the
-    checkpoint dict (``iteration``, ``lowest_loss``, ...)."""
+    """Load a reference-format ``.pth`` into ``model`` (strict, see
+    :func:`load_state_dict`); return the checkpoint dict (``iteration``,
+    ``lowest_loss``, ...)."""
     path = Path(path)
     if path.suffix == ".ckpt":
         raise ValueError(
@@ -66,5 +90,5 @@ def load_checkpoint(path, model: torch.nn.Module) -> Dict[str, Any]:
             "to .pth with cellulus_tpu.models.torch_export.save_torch_checkpoint"
         )
     state = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(state["model_state_dict"], strict=True)
+    load_state_dict(model, state["model_state_dict"])
     return state

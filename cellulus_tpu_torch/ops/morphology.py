@@ -4,9 +4,10 @@ Port of ``cellulus_tpu/ops/morphology.py``. The reference thresholds two
 Euclidean distance transforms (``dtedt(seg == 0) < grow`` and
 ``dtedt(expanded) < shrink``); a thresholded EDT is binary morphology with
 the disk ``{o : |o| < r}``, so each is one convolution of a 0/1 image with
-a 0/1 disk and a ``> 0.5`` test. Zero padding reproduces scipy's
-within-array distance semantics; every sum is a small integer, exact in
-float32 (and in TF32).
+a 0/1 disk (a ball in 3D, ``F.conv3d``) and a ``> 0.5`` test. Zero
+padding reproduces scipy's within-array distance semantics; every sum is a
+small integer (at most the ball's voxel count, 1331 for the 11^3 ball of
+the default shrink distance), exact in float32 (and in TF32).
 """
 
 from __future__ import annotations
@@ -24,23 +25,26 @@ def disk_kernel(radius: float, ndim: int) -> np.ndarray:
     return ((grid**2).sum(axis=0) < radius**2).astype(np.float32)
 
 
+_CONV = {2: F.conv2d, 3: F.conv3d}
+
+
 def _touches(mask: torch.Tensor, radius: float) -> torch.Tensor:
-    """Pixels within the open disk of ``radius`` of a set pixel of ``mask``
+    """Pixels within the open ball of ``radius`` of a set pixel of ``mask``
     (outside the array counts as unset)."""
-    k = torch.from_numpy(disk_kernel(radius, 2)).to(mask.device)
+    k = torch.from_numpy(disk_kernel(radius, mask.dim())).to(mask.device)
     r = (k.shape[0] - 1) // 2
-    x = F.pad(mask.float()[None, None], (r, r, r, r))
-    return F.conv2d(x, k[None, None])[0, 0] > 0.5
+    x = F.pad(mask.float()[None, None], (r, r) * mask.dim())
+    return _CONV[mask.dim()](x, k[None, None])[0, 0] > 0.5
 
 
 def halo_removal(
     segmentation: torch.Tensor, grow_distance: float, shrink_distance: float
 ) -> torch.Tensor:
     """Zero every pixel within ``shrink_distance`` of the background of the
-    foreground grown by ``grow_distance``. ``segmentation`` is a 2D label
-    image on the device."""
-    if segmentation.dim() != 2:
-        raise NotImplementedError("halo removal is ported for 2D label images only")
+    foreground grown by ``grow_distance``. ``segmentation`` is a 2D or 3D
+    label image on the device."""
+    if segmentation.dim() not in _CONV:
+        raise ValueError(f"halo removal takes 2D or 3D label images, not {segmentation.dim()}D")
     expanded = _touches(segmentation > 0, grow_distance)
     near_background = _touches(~expanded, shrink_distance)
     return torch.where(near_background, torch.zeros_like(segmentation), segmentation)

@@ -1,11 +1,12 @@
 """Tiled, test-time-augmented embedding prediction.
 
-Port of ``cellulus_tpu/predict.py`` (single device): output tiles cover the
-image on a shingled grid, each tile is read with its valid-conv context
-under reflect boundary handling, and ``tile_batch_size`` tiles at a time run
-all ``2 * num_infer_iterations`` noisy copies as one batched forward. The
-salt-and-pepper draws come from one ``torch.Generator`` per sample, seeded
-from ``(inference_config.seed, sample)``.
+Port of ``cellulus_tpu/predict.py`` (single device), 2D and 3D: output
+tiles cover the image or volume on a shingled grid, each tile is read with
+its valid-conv context under reflect boundary handling in every axis, and
+``tile_batch_size`` tiles at a time run all ``2 * num_infer_iterations``
+noisy copies as one batched forward. The salt-and-pepper draws come from
+one ``torch.Generator`` per sample, seeded from ``(inference_config.seed,
+sample)``.
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ def predict_sample(
     device,
     compute_dtype=torch.float32,
 ) -> np.ndarray:
-    """``(C, H, W)`` raw sample -> ``(D + 1, H, W)`` float32 embeddings."""
+    """``(C, *spatial)`` raw sample -> ``(D + 1, *spatial)`` float32
+    embeddings."""
     device = torch.device(device)
     raw = np.asarray(raw)
     spatial = raw.shape[1:]

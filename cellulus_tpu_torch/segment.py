@@ -3,7 +3,8 @@
 Port of ``cellulus_tpu/segment.py`` (``cell_segment_sample``, ``segment``):
 halo removal (grow by ``grow_distance``, then shrink by
 ``shrink_distance``) as disk convolutions on the device, then connected
-components, the ``min_size`` filter and a consecutive relabel on the host.
+components (full connectivity: 8 in 2D, 26 in 3D), the ``min_size``
+filter and a consecutive relabel on the host.
 With ``min_size == 0`` the halo-removed detections are kept as they are,
 without relabelling, as in the reference.
 """
@@ -27,7 +28,7 @@ def cell_segment_sample(
     min_size: int,
     device,
 ) -> np.ndarray:
-    """Halo removal + size filter + relabel of one ``(H, W)`` label image."""
+    """Halo removal + size filter + relabel of one 2D or 3D label image."""
     if segmentation.dtype != np.uint16 and segmentation.size:
         lo, hi = segmentation.min(), segmentation.max()
         if lo < 0 or hi > np.iinfo(np.uint16).max:

@@ -1,8 +1,9 @@
 """Training runtime: crops + pair sampling -> U-Net -> OCE loss -> Adam.
 
 Port of ``cellulus_tpu/train.py`` on one device with
-``steps_per_dispatch=1`` (``train.py:646-1253``). Each step runs the U-Net's
-training path (every 3x3 filter gradient through kernel K2 on the card),
+``steps_per_dispatch=1`` (``train.py:646-1253``), 2D and 3D. Each step runs
+the U-Net's training path (in 2D every 3x3 filter gradient through kernel
+K2 on the card; in 3D library convolutions, as in the JAX package),
 gathers the anchor and reference embeddings, takes the OCE loss, and
 updates with Adam whose L2 decay enters the gradient before the moments.
 Host work (crops, elastic warp, pair sampling with device sampling off)
@@ -30,7 +31,13 @@ from .configs import ExperimentConfig
 from .criterions import oce_loss
 from .datasets import BatchLoader, ConcatDataset, get_dataset
 from .io import zarr
-from .models import compute_geometry, init_unet_, select_and_add_coordinates, unet_from_config
+from .models import (
+    compute_geometry,
+    init_unet_,
+    load_state_dict,
+    select_and_add_coordinates,
+    unet_from_config,
+)
 from .utils.checkpoint import checkpoint_path, load_train_state, save_checkpoint, train_state
 from .utils.device import compute_dtype_for, resolve_device, seeded_generator
 from .utils.logger import get_logger
@@ -120,8 +127,8 @@ def make_optimizer(
 
 def make_train_step(model, optimizer, temperature: float, regularizer_weight: float,
                     compute_dtype=torch.float32):
-    """Step with host pairs in the repeated-anchor layout: ``step(raw (B, H,
-    W, C), anchors (B, P, D), references (B, P, D)) -> (loss, oce,
+    """Step with host pairs in the repeated-anchor layout: ``step(raw (B,
+    *spatial, C), anchors (B, P, D), references (B, P, D)) -> (loss, oce,
     offsets)``, all detached; the parameters are updated in place."""
 
     def step(raw, anchors, references):
@@ -199,6 +206,68 @@ def save_snapshot(raw_b, prediction_b, iteration: int, path="snapshots.zarr",
     )
 
 
+def check_3d_density_envelope(
+    num_spatial_dims: int,
+    density: float,
+    pair_count_mode: str = "reference",
+    lr: float = 4e-4,
+) -> None:
+    """Warn when a 3D run leaves the validated lr x pair-density envelope.
+
+    A copy of ``cellulus_tpu/train.py:check_3d_density_envelope``, with its
+    texts and thresholds.
+
+    2D's default ``density = 0.1`` is NOT a safe 3D default *at the default
+    lr*: on 3D volumes the embedding degrades or collapses when the learning
+    rate and the pair density are jointly too large. The round-4 lr x density
+    grid (docs/validation.md) shows the boundary is their PRODUCT, not the
+    density alone: every measured cell with ``lr * density <= 2e-5`` scores
+    F1 >= 0.91 — including density 0.1 (the 2D default) once lr drops to
+    1e-4, which scores F1 1.0 — while every cell above scores <= 0.52 and
+    high-lr cells collapse outright (F1 0.009 at lr 1.6e-3, density 0.025).
+    Below ``density ~0.02`` pair starvation collapses training regardless of
+    lr. The reference's pair count uses only the first two spatial dims even
+    in 3D (reference ``datasets/zarr_dataset.py:244-248``), which makes its
+    3D pair budget erratic — this guard is a deviation in the user's favor.
+    """
+    if num_spatial_dims < 3:
+        return
+    if density < 0.02 - 1e-9:
+        warnings.warn(
+            f"3D training with density={density:g} is below the validated "
+            "envelope: pair starvation collapses training (density 0.0125 "
+            "scored F1 0.085 in the docs/validation.md sweep). Set "
+            "train_config.density in [0.025, 0.05] with "
+            'pair_count_mode = "all_dims".',
+            RuntimeWarning,
+            stacklevel=3,
+        )
+    elif lr * density > 2e-5 + 1e-12:
+        warnings.warn(
+            f"3D training with lr={lr:g} and density={density:g} "
+            f"(lr*density={lr * density:.2g}) is outside the validated "
+            "envelope: in the docs/validation.md lr x density grid every "
+            "cell with lr*density > 2e-5 scores F1 <= 0.52 (e.g. density "
+            "0.1 scores F1 0.48 at lr 4e-4 but F1 1.0 at lr 1e-4), every "
+            "cell at <= 1e-5 scores F1 >= 0.91, and the 2e-5 boundary "
+            "itself is run-to-run noisy. Lower train_config.learning_rate "
+            "or train_config.density so their product is <= 1e-5, with "
+            'pair_count_mode = "all_dims".',
+            RuntimeWarning,
+            stacklevel=3,
+        )
+    elif pair_count_mode == "reference":
+        warnings.warn(
+            '3D training with pair_count_mode="reference" counts pairs with '
+            "the reference's 2-dim formula (reference "
+            "zarr_dataset.py:244-248), giving an unintentionally small and "
+            'crop-shape-dependent pair budget in 3D; "all_dims" is the '
+            "validated 3D setting (docs/validation.md).",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+
+
 def _check_ported(train_config) -> None:
     """Raise for the JAX package's options that are not ported yet."""
     unported = [
@@ -260,16 +329,14 @@ def train(experiment_config: ExperimentConfig,
         dataset = ConcatDataset([build_dataset(c) for c in train_config.train_data_configs])
     else:
         dataset = build_dataset(train_config.train_data_config)
-    if dataset.get_num_spatial_dims() != 2:
-        raise NotImplementedError(
-            f"{dataset.get_num_spatial_dims()}D training is not ported yet "
-            "(ROADMAP: M8, 3D main path)"
-        )
+    num_spatial_dims = dataset.get_num_spatial_dims()
+    check_3d_density_envelope(num_spatial_dims, train_config.density,
+                              train_config.pair_count_mode, lr=train_config.initial_learning_rate)
 
     # initialize=True: Kaiming-normal conv weights (reference train.py:65-68);
     # False: the torch conv default U(-1/sqrt(fan_in), 1/sqrt(fan_in))
     model = unet_from_config(
-        model_config, in_channels=dataset.get_num_channels(), num_spatial_dims=2
+        model_config, in_channels=dataset.get_num_channels(), num_spatial_dims=num_spatial_dims
     )
     init_unet_(
         model,
@@ -300,7 +367,7 @@ def train(experiment_config: ExperimentConfig,
     if model_config.checkpoint is not None:
         print(f"Resuming model from {model_config.checkpoint}")
         state = load_train_state(model_config.checkpoint)
-        model.load_state_dict(state["model_state_dict"], strict=True)
+        load_state_dict(model, state["model_state_dict"])
         if state.get("optim_state_dict"):
             optimizer.load_state_dict(state["optim_state_dict"])
         start_iteration = int(state.get("iteration", -1)) + 1

@@ -43,9 +43,22 @@ Phases, each failing the run (non-zero exit) if it fails:
    K2 launched 6 times a step, a resume, 3 float32 steps, then infer on the
    trained checkpoint;
 10. learn: a small recipe trains 400 steps and must beat its step-0 F1;
-11. the kernels line (JSON, one row per kernel and input type), then the
-    last line
-    ``{"ok": true, "device": {...}}``.
+11. ``[3d-check]``: the full-width 3D U-Net of ``examples/3d``, and
+    transposed-conv upsampling (``constant_upsample=False``) in 3D and 2D,
+    on the card against the CPU: forward, and every training-path gradient;
+12. ``[3d-train]``: ``examples/3d/train.toml`` (bf16, crop [40, 76, 76],
+    all_dims pairs on the card) on a synthetic 2 x 128^3 uint16 blob
+    container for 200 steps, the loss finite and below 3x its first value,
+    then a 1-step resume;
+13. ``[3d-main]``: the 3D infer main path on that checkpoint in float32 and
+    in bfloat16 (default mean shift, cell mode, evaluate against the
+    container's ground truth), the fit kernel launched once per sample and
+    no other kernel; after the float32 run sample 0's segment and
+    (``[3d-detect]``) detect in parts, labels on a small 3D fixture against
+    the plain version, and the fit kernel timed at d = 3 on sample 0's fit
+    input (``[K3-fit]``);
+14. the kernels line (JSON, one row per kernel and input type; the fit at
+    d = 2 and d = 3), then the last line ``{"ok": true, "device": {...}}``.
 
 Needs CUDA: without it the script exits non-zero and prints no result.
 Imports nothing of JAX or of the JAX package.
@@ -81,6 +94,8 @@ from cellulus_tpu_torch.ops.mean_shift_fit import (
     mean_shift_fit_plain,
     mean_shift_fit_plan,
 )
+from cellulus_tpu_torch.ops.components import filter_relabel
+from cellulus_tpu_torch.ops.morphology import halo_removal
 from cellulus_tpu_torch.ops.otsu import threshold_otsu
 from cellulus_tpu_torch.utils import kernels
 
@@ -108,25 +123,38 @@ IMAGE_SIZE = 512
 # uniform in the image so that seeds wander; and K3's (seeds, points) as a fit
 LONG_FIT_POINTS = 87000
 K3_FIT_SHAPE = (1024, 16384)
+# the 3D model of examples/3d (train.toml, infer.toml) with its crop and
+# object size, on volumes of examples/3d/01-data.py's size
+MODEL_3D = dict(num_fmaps=24, fmap_inc_factor=3, features_in_last_layer=64,
+                downsampling_factors=[[1, 2, 2]])
+CROP_3D = [40, 76, 76]
+OBJECT_SIZE_3D = 12
+VOLUME_SIZE = 128
+TRAIN_STEPS_3D = 200
+LONG_FIT_POINTS_3D = 100000
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def make_blobs(num_samples, size, seed, dtype=np.uint16, num_blobs=40, radius=(0.025, 0.045)):
-    """Bright disks on a dark noisy background: ``(raw (s, 1, H, W),
-    labels (s, 1, H, W) uint16)``; radii are ``radius`` times ``size``."""
+def make_blobs(num_samples, size, seed, dtype=np.uint16, num_blobs=40, radius=(0.025, 0.045),
+               ndim=2):
+    """Bright disks (balls in 3D) on a dark noisy background: ``(raw (s, 1,
+    *spatial), labels (s, 1, *spatial) uint16)``, ``spatial = (size,) *
+    ndim``; radii are ``radius`` times ``size``."""
     rng = np.random.default_rng(seed)
-    raw = np.zeros((num_samples, 1, size, size), np.float32)
-    labels = np.zeros((num_samples, 1, size, size), np.uint16)
-    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    spatial = (size,) * ndim
+    raw = np.zeros((num_samples, 1, *spatial), np.float32)
+    labels = np.zeros((num_samples, 1, *spatial), np.uint16)
+    grid = np.meshgrid(*[np.arange(size)] * ndim, indexing="ij")
     for s in range(num_samples):
         next_id = 1
         for _ in range(num_blobs):
             r = rng.uniform(radius[0] * size, radius[1] * size)
-            cy, cx = rng.uniform(r, size - r, size=2)
-            dist2 = (yy - cy) ** 2 + (xx - cx) ** 2
+            center = rng.uniform(r, size - r, size=ndim)
+            dist2 = sum((g - c) ** 2 for g, c in zip(grid, center))
             mask = dist2 < r**2
             if (labels[s, 0][mask] != 0).any():
                 continue
@@ -135,33 +163,40 @@ def make_blobs(num_samples, size, seed, dtype=np.uint16, num_blobs=40, radius=(0
                 -dist2[mask] / (2 * (r / 1.5) ** 2)
             )
             next_id += 1
-        raw[s, 0] += rng.normal(0, 0.02, (size, size)).clip(0)
+        raw[s, 0] += rng.normal(0, 0.02, spatial).clip(0)
     scale = np.iinfo(dtype).max
     return (raw.clip(0, 1) * scale).astype(dtype), labels
 
 
-def write_blob_container(path, num_samples, size, seed, dtype=np.uint16, **blobs):
-    raw, labels = make_blobs(num_samples, size, seed, dtype, **blobs)
+def write_blob_container(path, num_samples, size, seed, dtype=np.uint16, ndim=2, **blobs):
+    raw, labels = make_blobs(num_samples, size, seed, dtype, ndim=ndim, **blobs)
     f = zarr.open(path, "a")
     for name, data in (("raw", raw), ("groundtruth", labels)):
         f[name] = data
-        f[name].attrs.update({"axis_names": ["s", "c", "y", "x"], "resolution": [1, 1]})
+        f[name].attrs.update({"axis_names": ["s", "c"] + ["z", "y", "x"][-ndim:],
+                              "resolution": [1] * ndim})
     return path
 
 
-def save_random_checkpoint(path, seed, in_channels=1, **model):
-    """Seeded Kaiming-normal weights as a reference-format ``.pth``."""
+def random_unet(seed, in_channels=1, num_spatial_dims=2, **model):
+    """Seeded Kaiming-normal weights (every conv and transposed conv)."""
     torch.manual_seed(seed)
-    net = UNet(in_channels, 2, **model)
+    net = UNet(in_channels, num_spatial_dims, num_spatial_dims=num_spatial_dims, **model)
     for m in net.modules():
-        if isinstance(m, torch.nn.Conv2d):
+        if isinstance(m, torch.nn.modules.conv._ConvNd):
             torch.nn.init.kaiming_normal_(m.weight)
+    return net
+
+
+def save_random_checkpoint(path, seed, in_channels=1, num_spatial_dims=2, **model):
+    """Seeded Kaiming-normal weights as a reference-format ``.pth``."""
+    net = random_unet(seed, in_channels, num_spatial_dims, **model)
     torch.save({"iteration": 0, "lowest_loss": 0.0, "model_state_dict": net.state_dict(),
                 "optim_state_dict": {}, "logger_data": {}}, path)
     return net
 
 
-def infer_config(container, checkpoint, model, **inference):
+def infer_config(container, checkpoint, model, object_size=OBJECT_SIZE, **inference):
     """All stages read and write one container, which holds the ground truth."""
 
     def ds(name, secondary=None):
@@ -171,7 +206,7 @@ def infer_config(container, checkpoint, model, **inference):
         return d
 
     return ExperimentConfig(**{
-        "object_size": OBJECT_SIZE,
+        "object_size": object_size,
         "model_config": {**model, "checkpoint": str(checkpoint)},
         "inference_config": {
             "dataset_config": ds("raw"),
@@ -448,7 +483,7 @@ def phase_ball_stats(device):
 
 def _load_fit_emulation():
     """tests/mean_shift_fit_emu.py, loaded by path (numpy only)."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "mean_shift_fit_emu.py")
+    path = os.path.join(REPO, "tests", "mean_shift_fit_emu.py")
     spec = importlib.util.spec_from_file_location("mean_shift_fit_emu", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -650,20 +685,17 @@ def _route_fit(seeds, points, bw2, stop, max_iter):
     return mean_shift_fit_plain(seeds, points, bw2, stop, max_iter, ball_stats)
 
 
-def phase_detect(container, device, detect_seconds):
+def _detect_in_parts(container, ic, ndim, device, reps):
     """Sample 0's detect in parts, with the port's own functions on the
-    container the float32 main path left (its default settings): the read,
-    host preparation (Otsu threshold, mean-centring, points = coordinate
-    grid + mask + subsample, bin seeds), transfers to the card, fit, dedupe,
-    predict and the labels' transfer back; the whole ``detect_sample`` with
-    the fit kernel and with the one-iteration route, in turns; the rest of
-    the main path's detect stage (the zarr read and writes). Then the fit
-    kernel timed on sample 0's fit input."""
-    ic = infer_config(container, "unused.pth", MODEL, device=str(device)).inference_config
-    ic.bandwidth = 0.5 * OBJECT_SIZE
+    container a float32 main path left: the read, host preparation (Otsu
+    threshold, mean-centring, points = coordinate grid + mask + subsample,
+    bin seeds), transfers to the card, fit, dedupe, predict and the labels'
+    transfer back. Returns the median ms of each part over ``reps`` runs and
+    the last run's ``emb``, ``X``, ``X_fit``, bin seeds, kept centers and
+    fit problem ``(seeds, points, bw2, stop)``."""
     parts = {k: [] for k in ("read", "otsu", "centre", "points", "bin_seeds", "to_device",
                              "fit", "dedupe", "predict", "to_host")}
-    for _ in range(5):
+    for _ in range(reps):
         t = [time.perf_counter()]
         emb = np.asarray(zarr.open(container, "r")["embeddings"][0], dtype=np.float32)
         t.append(time.perf_counter())
@@ -672,7 +704,7 @@ def phase_detect(container, device, detect_seconds):
         mask = emb[-1] < threshold
         mean_center_embeddings(emb, mask)
         t.append(time.perf_counter())
-        X = msops.add_coordinate_grid(emb[:2]).reshape(2, -1).T[mask.ravel()]
+        X = msops.add_coordinate_grid(emb[:ndim]).reshape(ndim, -1).T[mask.ravel()]
         X_fit = X[sample_rng(ic.seed, 0).random(len(X)) < ic.reduction_probability]
         t.append(time.perf_counter())
         seeds_np = msops.bin_seeds(X_fit, bin_size=ic.bandwidth)
@@ -696,6 +728,19 @@ def phase_detect(container, device, detect_seconds):
         for key, a, b in zip(parts, t[:-1], t[1:]):
             parts[key].append(1e3 * (b - a))
     median = {k: float(np.median(v)) for k, v in parts.items()}
+    return median, emb, X, X_fit, seeds_np, kept, (seeds, points, bw2, stop)
+
+
+def phase_detect(container, device, detect_seconds):
+    """Sample 0's detect in parts (:func:`_detect_in_parts`, median of 5)
+    with the default settings; the whole ``detect_sample`` with the fit
+    kernel and with the one-iteration route, in turns; the rest of the main
+    path's detect stage (the zarr read and writes). Then the fit kernel
+    timed on sample 0's fit input."""
+    ic = infer_config(container, "unused.pth", MODEL, device=str(device)).inference_config
+    ic.bandwidth = 0.5 * OBJECT_SIZE
+    median, emb, X, X_fit, seeds_np, kept, (seeds, points, bw2, stop) = _detect_in_parts(
+        container, ic, 2, device, 5)
 
     whole = {"kernel": [], "route": []}
     for order in (("route", "kernel"), ("kernel", "route")) * 3:
@@ -721,16 +766,36 @@ def phase_detect(container, device, detect_seconds):
                     ic.mean_shift_max_iterations)
 
 
+def _card_vs_cpu(net, x, device):
+    """``net`` on the card against the CPU in float32: ``(forward max abs
+    err / max(1, max|out|), (training-path gradient max abs err / max|grad|,
+    tensor) at the worst tensor, the tensors whose gradient is zero on the
+    card, the tensor count)``."""
+    with torch.no_grad():
+        ref = net.to("cpu").eval()(x)
+        got = net.to(device)(x.to(device)).cpu()
+    forward_err = float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+    grads = {}
+    for dev in ("cpu", device):
+        net.to(dev).zero_grad()
+        net(x.to(dev)).square().sum().backward()
+        # clone: moving the module later rewrites .grad in place
+        grads[str(dev)] = {k: p.grad.cpu().clone() for k, p in net.named_parameters()}
+    cpu_g, gpu_g = grads["cpu"], grads[str(device)]
+    zero = [k for k, g in gpu_g.items() if not bool(g.abs().sum() > 0)]
+    worst = max((float((gpu_g[k] - cpu_g[k]).abs().max() / cpu_g[k].abs().max()), k)
+                for k in cpu_g)
+    return forward_err, worst, zero, len(gpu_g)
+
+
 def phase_reference_checks(work, device):
     """Small inputs where the card must agree with the port's CPU path."""
     net = save_random_checkpoint(os.path.join(work, "small.pth"), seed=3, **MODEL)
     x = torch.rand((2, 92, 92, 1), generator=torch.Generator().manual_seed(4))
-    with torch.no_grad():
-        ref = net.eval()(x)
-        got = net.to(device)(x.to(device)).cpu()
-    err = float((got - ref).abs().max())
-    if not err <= 1e-4 * max(1.0, float(ref.abs().max())):
-        fail(f"U-Net forward on the card differs from the CPU: max abs err {err:.3g}")
+    err, (worst, _), zero, n = _card_vs_cpu(net, x, device)
+    if not err <= 1e-4:
+        fail(f"U-Net forward on the card differs from the CPU: max abs err {err:.3g} x "
+             "max(1, max|out|)")
     rng = np.random.default_rng(1)
     centers = np.array([[0.0, 0.0], [8.0, 8.0], [0.0, 9.0]])
     X = np.concatenate([rng.normal(c, 0.6, size=(60, 2)) for c in centers]).astype(np.float32)
@@ -738,7 +803,7 @@ def phase_reference_checks(work, device):
     gpu = mean_shift_fit_predict(X, 2.0, None, device=device)
     if not np.array_equal(cpu, gpu):
         fail("mean shift labels on the card differ from the CPU")
-    print(f"[check] U-Net forward card vs CPU max abs err {err:.3g}; "
+    print(f"[check] U-Net forward card vs CPU max abs err {err:.3g} x max(1, max|out|); "
           f"mean-shift labels equal ({len(set(gpu.tolist()))} clusters)")
 
     # K1 defines no gradient and says so; the training path gives every conv
@@ -751,21 +816,12 @@ def phase_reference_checks(work, device):
             raise
     else:
         fail("conv_pass_2d ran under autograd with weights that require a gradient")
-    grads = {}
-    for dev in ("cpu", device):
-        net.to(dev).zero_grad()
-        net(x.to(dev)).square().sum().backward()
-        # clone: moving the module later rewrites .grad in place
-        grads[str(dev)] = {k: p.grad.cpu().clone() for k, p in net.named_parameters()}
-    cpu_g, gpu_g = grads["cpu"], grads[str(device)]
-    zero = [k for k, g in gpu_g.items() if not bool(g.abs().sum() > 0)]
     if zero:
         fail(f"training path left these gradients zero on the card: {zero}")
-    worst = max(float((gpu_g[k] - cpu_g[k]).abs().max() / cpu_g[k].abs().max()) for k in cpu_g)
     if not worst <= 1e-4:
         fail(f"U-Net gradients card vs CPU: max abs err / max|grad| {worst:.3g} (limit 1e-4)")
     print(f"[check] conv_pass_2d raises under autograd; training-path gradients of all "
-          f"{len(gpu_g)} tensors non-zero, card vs CPU max abs err / max|grad| {worst:.3g} "
+          f"{n} tensors non-zero, card vs CPU max abs err / max|grad| {worst:.3g} "
           f"(limit 1e-4)")
 
 
@@ -837,9 +893,9 @@ def phase_main_path(work):
     return launches, fit
 
 
-def train_config(container, model, **train):
+def train_config(container, model, object_size=OBJECT_SIZE, **train):
     return ExperimentConfig(**{
-        "object_size": OBJECT_SIZE,
+        "object_size": object_size,
         "model_config": dict(model),
         "train_config": {
             "train_data_config": {"container_path": str(container), "dataset_name": "raw"},
@@ -979,6 +1035,223 @@ def phase_learn(work):
           f"F1 {f1_start:.4f}, SEG {results['000000.pth']['SEG']:.4f}")
 
 
+# -- the 3D main path ----------------------------------------------------------------
+
+
+def phase_3d_checks(device):
+    """The full-width 3D U-Net, and transposed-conv upsampling
+    (``constant_upsample=False``) in 3D and in 2D, on the card against the
+    CPU: forward, and every gradient of the training path. A weight's
+    gradient sums over every output voxel of a batch (77,000 at this input)
+    in float32 in other orders on the two (cuDNN with TF32 off, and the
+    CPU's), so the limit is 5e-4 x max|grad| of each tensor (9.1e-5 at the
+    worst tensor in a first run)."""
+    gen = torch.Generator().manual_seed(12)
+    x3 = torch.rand((2, 20, 44, 44, 1), generator=gen)
+    x2 = torch.rand((2, 92, 92, 1), generator=gen)
+    for name, net, x in (
+        ("3D", random_unet(3, num_spatial_dims=3, **MODEL_3D), x3),
+        ("3D transposed-conv", random_unet(4, num_spatial_dims=3, constant_upsample=False,
+                                           **MODEL_3D), x3),
+        ("2D transposed-conv", random_unet(5, constant_upsample=False, **MODEL), x2),
+    ):
+        forward_err, (worst, worst_name), zero, n = _card_vs_cpu(net, x, device)
+        if not forward_err <= 1e-4:
+            fail(f"{name} U-Net forward on the card differs from the CPU: max abs err "
+                 f"{forward_err:.3g} x max(1, max|out|)")
+        if zero:
+            fail(f"{name} U-Net: training path left these gradients zero on the card: {zero}")
+        if not worst <= 5e-4:
+            fail(f"{name} U-Net gradients card vs CPU: max abs err / max|grad| {worst:.3g} "
+                 f"at {worst_name} (limit 5e-4)")
+        print(f"[3d-check] {name} U-Net at full width, input {tuple(x.shape)}: forward card "
+              f"vs CPU max abs err {forward_err:.3g} x max(1, max|out|) (limit 1e-4); "
+              f"training-path gradients of all {n} tensors non-zero, card vs CPU max abs err "
+              f"/ max|grad| {worst:.3g} at {worst_name} (limit 5e-4)", flush=True)
+
+
+def _train_3d_config(container, max_iterations, checkpoint=None):
+    """examples/3d/train.toml, on ``container``, on the card, with cadences
+    only at the first and the last step."""
+    config = ExperimentConfig.from_toml(os.path.join(REPO, "examples", "3d", "train.toml"))
+    tc = config.train_config
+    tc.train_data_config.container_path = str(container)
+    tc.train_data_config.dataset_name = "raw"
+    tc.device = DEVICE
+    tc.max_iterations = max_iterations
+    tc.save_best_model_every = tc.save_model_every = tc.save_snapshot_every = 10**6
+    config.model_config.checkpoint = checkpoint
+    return config
+
+
+def phase_train_3d(work):
+    """The 3D train main path: examples/3d/train.toml's settings on a
+    synthetic 2 x 128^3 uint16 blob container (examples/3d/01-data.py's
+    sizes) for TRAIN_STEPS_3D bf16 steps, then a 1-step resume. Returns the
+    container and the resumed checkpoint."""
+    train_dir = os.path.join(work, "train3d")
+    os.makedirs(train_dir)
+    container = write_blob_container(os.path.join(train_dir, "data.zarr"), 2, VOLUME_SIZE,
+                                     seed=42, ndim=3, num_blobs=12, radius=(0.04, 0.09))
+    steps = TRAIN_STEPS_3D
+    config = _train_3d_config(container, steps)
+    tc, mc = config.train_config, config.model_config
+    if ((tc.crop_size, tc.batch_size, tc.precision, tc.kappa, tc.density, tc.pair_count_mode,
+         tc.elastic_deform, tc.loss_mode, tc.device_pair_sampling, config.object_size)
+            != (CROP_3D, 2, "bfloat16", 6.0, 0.05, "all_dims", False, "pairs", True,
+                OBJECT_SIZE_3D)
+            or {k: getattr(mc, k) for k in MODEL_3D} != MODEL_3D):
+        fail("examples/3d/train.toml differs from the settings this script assumes")
+    with contextlib.chdir(train_dir), logged(os.path.join(train_dir, "train.log")):
+        step_times = []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, k2_launches = _run_train(config, step_times)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        resumed, _ = _run_train(_train_3d_config(
+            container, steps + 1, os.path.join("models", f"{steps - 1:06d}.pth")))
+    if k2_launches:
+        fail(f"3D training launched the 2D filter-gradient kernel {k2_launches} times")
+    losses = np.asarray(state["logger_data"]["loss"])
+    if len(losses) != steps or not losses.max() < 3 * losses[0]:
+        fail(f"3D training diverged: {len(losses)} losses, first {losses[0]:.4g}, max "
+             f"{losses.max():.4g} (limit 3 x the first)")
+    if resumed["iteration"] != steps or len(resumed["logger_data"]["loss"]) != steps + 1:
+        fail(f"3D resume ran to iteration {resumed['iteration']}")
+    step_ms = 1e3 * float(np.median(np.diff(step_times[1:-1])))
+    print(f"[3d-train] examples/3d/train.toml (bf16, batch 2, crop {tc.crop_size}, all_dims "
+          f"pairs on the card) on 2 x {VOLUME_SIZE}^3: {steps} steps in {wall:.2f}s (build and "
+          f"data start included), median step {step_ms:.2f} ms (steady steps, the first "
+          f"excluded), peak memory {peak:.2f} GiB; no K1 or K2 launch (3D convs are library "
+          "convolutions)")
+    print(f"[3d-train] losses first/last {losses[0]:.4f} / {losses[-1]:.4f}, max "
+          f"{losses.max():.4f} < 3 x first, all finite; resume ran iteration "
+          f"{resumed['iteration']} (loss {resumed['logger_data']['loss'][-1]:.4f})", flush=True)
+    return container, os.path.join(train_dir, "models", f"{steps:06d}.pth")
+
+
+def _segment_parts(container, ic, device):
+    """Sample 0's segment in parts: halo removal on the card (two 3D
+    convolutions), then the host connected components, size filter and
+    relabel, in ms."""
+    det = np.asarray(zarr.open(container, "r")["detection"][0, 0])
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+    seg = torch.from_numpy(det.astype(np.int32)).to(device)
+    halo = halo_removal(seg, float(ic.grow_distance), float(ic.shrink_distance)).cpu().numpy()
+    t.append(time.perf_counter())
+    filter_relabel(halo, ic.min_size)
+    t.append(time.perf_counter())
+    return 1e3 * (t[1] - t[0]), 1e3 * (t[2] - t[1])
+
+
+def _infer_main_3d(work, container, checkpoint, precision):
+    """One run of the 3D infer main path at ``precision``, with every
+    kernel count set to 0 just before it; returns its launches."""
+    config = infer_config(container, checkpoint, MODEL_3D, object_size=OBJECT_SIZE_3D,
+                          device=DEVICE, crop_size=CROP_3D, precision=precision)
+    conv_pass_2d.launches = conv3x3_dw.launches = 0
+    ball_stats.launches = mean_shift_fit.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    stage_seconds = {}
+    t0 = time.perf_counter()
+    with contextlib.chdir(work):
+        results = cellulus_tpu_torch.infer(config, stage_seconds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"conv_pass_2d": conv_pass_2d.launches, "conv3x3_dw": conv3x3_dw.launches,
+                "mean_shift_fit": mean_shift_fit.launches, "ball_stats": ball_stats.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    f = zarr.open(container, "r")
+    emb = f["embeddings"][...]
+    seg = f["segmentation"][...]
+    spatial = (VOLUME_SIZE,) * 3
+    if emb.shape != (2, 4, *spatial) or not np.isfinite(emb).all() or emb[:, 3].min() < 0:
+        fail(f"3D {precision}: embeddings {emb.shape}, finite={np.isfinite(emb).all()}")
+    if seg.shape != (2, 1, *spatial):
+        fail(f"3D {precision}: segmentation shape {seg.shape}")
+    instances = []
+    for s in range(2):
+        ids = np.unique(seg[s, 0])
+        ids = ids[ids > 0]
+        if len(ids) and not np.array_equal(ids, np.arange(1, len(ids) + 1)):
+            fail(f"3D {precision}: segmentation labels are not consecutive from 1")
+        instances.append(len(ids))
+    if results is None or not all(0.0 <= results[0][k] <= 1.0 for k in ("F1", "SEG")):
+        fail(f"3D {precision}: evaluate results {results}")
+    # one fit per (sample, bandwidth), no 2D kernel, the one-iteration kernel never
+    if launches != {"conv_pass_2d": 0, "conv3x3_dw": 0, "mean_shift_fit": 2, "ball_stats": 0}:
+        fail(f"3D {precision}: launches {launches}, expected 2 mean_shift_fit and no other")
+    g = compute_geometry(CROP_3D, MODEL_3D["downsampling_factors"])
+    tiles = math.prod(math.ceil(VOLUME_SIZE / o) for o in g.output_size)
+    print(f"[3d-main] {precision} stages (s): "
+          f"{json.dumps({k: round(v, 3) for k, v in stage_seconds.items()})}, total {wall:.2f}s; "
+          f"{tiles} tiles of {CROP_3D} (output {list(g.output_size)}) a sample, "
+          f"{math.ceil(tiles / TILE_BATCH)} forwards of {TILE_BATCH} x "
+          f"{2 * NUM_INFER_ITERATIONS} volumes; peak memory {peak:.1f} GiB")
+    print(f"[3d-main] {precision} instances per sample {instances}, F1 {results[0]['F1']:.4f}, "
+          f"SEG {results[0]['SEG']:.4f} (after {TRAIN_STEPS_3D + 1} steps; no bar), launches "
+          f"{json.dumps(launches)}", flush=True)
+    return launches, config.inference_config
+
+
+def phase_detect_3d(container, ic, device):
+    """Sample 0's 3D detect in parts (median of 3), labels on a small 3D
+    fixture against the plain version, the fit kernel at d = 3 on a long
+    fit at the JAX package's 3D bench scale (~10k bin seeds), then timed on
+    sample 0's fit input (``[K3-fit]``)."""
+    median, _, X, X_fit, seeds_np, kept, problem = _detect_in_parts(container, ic, 3, device, 3)
+    seeds, points, _, _ = problem
+    plan = mean_shift_fit_plan(seeds.shape[0], points.x.shape[0], 3)
+    print(f"[3d-detect] sample 0 in parts, median of 3 (ms): "
+          f"{json.dumps({k: round(v, 3) for k, v in median.items()})}, sum "
+          f"{sum(median.values()):.2f} ms; {len(X)} foreground voxels, N = {len(X_fit)} fitted, "
+          f"S = {len(seeds_np)} bin seeds, {len(kept)} clusters; fit plan (seeds a group, "
+          f"clusters, resident points a block, shared bytes) {plan}", flush=True)
+
+    rng = np.random.default_rng(13)
+    Xc = np.concatenate([rng.normal(c, 0.8, size=(200, 3)) for c in
+                         rng.uniform(0, 40, size=(5, 3))]).astype(np.float32)
+    mean_shift_fit.launches = 0
+    gpu = mean_shift_fit_predict(Xc, 3.0, None, device=device)
+    launches = mean_shift_fit.launches
+    cpu = mean_shift_fit_predict(Xc, 3.0, None, device="cpu")
+    if launches != 1 or not _same_partition(gpu, cpu):
+        fail(f"mean_shift_fit 3D few clusters: labels differ from the plain version's "
+             f"({launches} launches)")
+    print(f"[K3-fit] 3D, few clusters: labels equal the plain version's as a partition "
+          f"({len(set(gpu.tolist()) - {-1})} clusters, ids equal: {np.array_equal(gpu, cpu)})")
+
+    # a long 3D fit: LONG_FIT_POINTS_3D uniform points in a VOLUME_SIZE^3
+    # volume at bw = 0.5 x OBJECT_SIZE_3D, so bin seeds fill the volume
+    X = np.random.default_rng(14).uniform(0, VOLUME_SIZE, (LONG_FIT_POINTS_3D, 3))
+    X = X.astype(np.float32)
+    time_fit("3D long fit", *_fit_problem(X, msops.bin_seeds(X, ic.bandwidth), ic.bandwidth,
+                                          device), ic.mean_shift_max_iterations)
+    return time_fit("3D main input (sample 0), d = 3", *problem, ic.mean_shift_max_iterations)
+
+
+def phase_main_3d(work, container, checkpoint):
+    """The 3D infer main path on the [3d-train] checkpoint in float32 (the
+    default) and bfloat16 (examples/3d/infer.toml's precision), with the
+    default mean-shift clustering; sample 0's detect and segment in parts
+    and the fit kernel at d = 3 after the float32 run. Returns the launches
+    of each run, by precision, and the fit's timing."""
+    launches, ic = _infer_main_3d(work, container, checkpoint, "float32")
+    launches = {"float32": launches}
+    halo_ms, cc_ms = _segment_parts(container, ic, torch.device(DEVICE))
+    print(f"[3d-main] segment, sample 0 in parts: halo removal on the card (grow "
+          f"{ic.grow_distance}, shrink {ic.shrink_distance}) {halo_ms:.1f} ms with the "
+          f"transfers, host connected components + "
+          f"size filter (min_size {ic.min_size}) + relabel on {VOLUME_SIZE}^3 {cc_ms:.1f} ms",
+          flush=True)
+    fit = phase_detect_3d(container, ic, torch.device(DEVICE))
+    launches["bfloat16"] = _infer_main_3d(work, container, checkpoint, "bfloat16")[0]
+    return launches, fit
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -998,6 +1271,9 @@ def main() -> None:
         infer_launches, k3_fit = phase_main_path(work)
         k2_bf16, k2_f32 = phase_train(work, k2[torch.bfloat16]["ms"])
         phase_learn(work)
+        phase_3d_checks(device)
+        container_3d, checkpoint_3d = phase_train_3d(work)
+        infer_3d_launches, k3_fit_3d = phase_main_3d(work, container_3d, checkpoint_3d)
     k1_launches = {torch.float32: infer_launches["float32"]["conv_pass_2d"],
                    torch.bfloat16: infer_launches["bfloat16"]["conv_pass_2d"]}
     k2_launches = {torch.bfloat16: k2_bf16, torch.float32: k2_f32}
@@ -1016,11 +1292,12 @@ def main() -> None:
                  "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
                  "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",
                  "launches": infer_launches["float32"]["ball_stats"], **k3})
-    k3_fit.pop("out")
-    rows.append({"name": "mean_shift_fit", "route": "cuda",
-                 "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
-                 "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",
-                 "launches": infer_launches["float32"]["mean_shift_fit"], **k3_fit})
+    for d, fit, launches in ((2, k3_fit, infer_launches), (3, k3_fit_3d, infer_3d_launches)):
+        fit.pop("out")
+        rows.append({"name": "mean_shift_fit", "d": d, "route": "cuda",
+                     "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
+                     "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",
+                     "launches": launches["float32"]["mean_shift_fit"], **fit})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ import torch
 
 from cellulus_tpu.models import UNetSpec, forward, init_params, tta_embeddings as jax_tta
 from cellulus_tpu.models.torch_export import save_torch_checkpoint
+from tests.unet_pairs import unet_pair
 from cellulus_tpu_torch.models import (
     UNet,
     load_checkpoint,
@@ -88,8 +89,97 @@ def test_tta_with_noise_matches_jax_forward_on_the_same_draws():
     np.testing.assert_allclose(mine, ref, atol=2e-4, rtol=1e-4)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNet(1, 2, 8, 2, 16, [[2, 2]], 2, constant_upsample=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNet(1, 3, 8, 2, 16, [[1, 2, 2]], 3)
+@pytest.mark.parametrize("num_spatial_dims", [1, 4])
+def test_other_ranks_raise(num_spatial_dims):
+    factors = [[2] * num_spatial_dims]
+    with pytest.raises(ValueError, match="2 or 3 spatial dims"):
+        UNet(1, num_spatial_dims, 8, 2, 16, factors, num_spatial_dims)
+
+
+# -- transposed-conv upsampling (constant_upsample=False) ----------------------
+
+
+def _tconv_pair(ndim, factors):
+    return unet_pair(ndim, factors, constant_upsample=False)
+
+
+TCONV_CASES = [(2, ((2, 2),), (60, 60)), (2, ((2, 2), (3, 3)), (88, 88)),
+               (3, ((1, 2, 2),), (20, 36, 36)), (3, ((2, 2, 2),), (28, 28, 28))]
+
+
+@pytest.mark.parametrize("ndim,factors,size", TCONV_CASES)
+def test_tconv_forward_matches_jax(ndim, factors, size):
+    """float32, atol 2e-4 and rtol 1e-4 as the nearest-upsampling forward."""
+    spec, params, model = _tconv_pair(ndim, factors)
+    x = np.random.default_rng(0).normal(size=(2, *size, 1)).astype(np.float32)
+    with torch.no_grad():
+        mine = model(torch.from_numpy(x)).numpy()
+    ref = np.asarray(forward(spec, params, jnp.asarray(x)))
+    assert mine.shape == ref.shape
+    np.testing.assert_allclose(mine, ref, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("ndim,factors,size", [TCONV_CASES[0], TCONV_CASES[2]])
+def test_tconv_gradients_match_jax_grad(ndim, factors, size):
+    """Every parameter's gradient, the transposed convs' included, within
+    rtol 1e-4 and 1e-4 x max|g| of ``jax.grad``'s (float32)."""
+    spec, params, model = _tconv_pair(ndim, factors)
+    x = np.random.default_rng(2).random((2, *size, 1)).astype(np.float32)
+    out_shape = np.asarray(forward(spec, params, jnp.asarray(x))).shape
+    w = np.random.default_rng(3).standard_normal(out_shape).astype(np.float32)
+    grads = jax.grad(lambda p: (forward(spec, p, jnp.asarray(x)) * w).sum())(params)
+    want = state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, grads))
+    (model(torch.from_numpy(x)) * torch.from_numpy(w)).sum().backward()
+    assert any(name.startswith("backbone.r_up.") for name, _ in model.named_parameters())
+    for name, p in model.named_parameters():
+        ref = want[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), ref, rtol=1e-4,
+                                   atol=1e-4 * np.abs(ref).max(), err_msg=name)
+
+
+def test_tconv_upsample_is_torch_conv_transpose():
+    """The block matmul + interleave is ``ConvTranspose`` with kernel =
+    stride, on the module's own weights (float32, atol 1e-5)."""
+    _, _, model = _tconv_pair(3, ((1, 2, 2),))
+    up = model.backbone.r_up[0][0]
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 5, 6, 7, 16)).astype(np.float32))
+    with torch.no_grad():
+        mine = up(x, torch.float32)
+        ref = up.up(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+    assert mine.shape == (2, 5, 12, 14, 16)
+    np.testing.assert_allclose(mine.numpy(), ref.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("ndim,factors", [(2, ((2, 2), (2, 2))), (3, ((1, 2, 2),))])
+def test_tconv_pth_from_jax_export_loads_strictly(tmp_path, ndim, factors):
+    """``state_dict_from_jax_params`` carries the transposed convs to
+    funlib's ``backbone.r_up.0.<l>.up`` bit for bit, and so does
+    ``save_torch_checkpoint``; the port loads its ``.pth`` strictly."""
+    _, params, model = _tconv_pair(ndim, factors)
+    bridged = state_dict_from_jax_params(params)
+    assert bridged.keys() == model.state_dict().keys()
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(bridged[k], v, rtol=0, atol=0)
+    path = tmp_path / "tconv.pth"
+    save_torch_checkpoint(path, params, iteration=3)
+    assert any(k.startswith("backbone.r_up.0.") for k in torch.load(path)["model_state_dict"])
+    loaded = UNet(1, ndim, 8, 2, 16, [list(f) for f in factors], ndim, constant_upsample=False)
+    assert load_checkpoint(path, loaded)["iteration"] == 3
+    for (k, a), (k2, b) in zip(model.state_dict().items(), loaded.state_dict().items()):
+        assert k == k2
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_upsample_mode_mismatch_raises(tmp_path):
+    """The JAX package's two refusals: transposed-conv weights are never
+    ignored, and never missing where the model needs them."""
+    _, params, _ = _tconv_pair(2, ((2, 2),))
+    tconv = tmp_path / "tconv.pth"
+    save_torch_checkpoint(tconv, params)
+    with pytest.raises(ValueError, match="set constant_upsample = false"):
+        load_checkpoint(tconv, UNet(1, 2, 8, 2, 16, [[2, 2]], 2))
+    _, nearest_params, _ = _pair()
+    nearest = tmp_path / "nearest.pth"
+    save_torch_checkpoint(nearest, nearest_params)
+    with pytest.raises(ValueError, match="set constant_upsample = true"):
+        load_checkpoint(nearest, UNet(1, 2, 8, 2, 16, [[2, 2]], 2, constant_upsample=False))
