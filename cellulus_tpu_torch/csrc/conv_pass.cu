@@ -36,6 +36,17 @@
 //   time with their weight rows for all 9 taps, and only the two
 //   intermediates stay resident. That takes the up pass from 12 x 12 to
 //   16 x 16 tiles in bf16 and from 8 x 8 to 14 x 14 in f32.
+// - A wide pass whose fused plan fits no tile (the 256-fmap model's bottom
+//   pass, 256 -> 768: its ring stage alone holds 9 x scb weight rows of
+//   width C) takes the staged route, chosen by shape in the wrapper: one
+//   launch per stage (conv_stage_kernel), each intermediate in device memory
+//   in the compute type, so the rounding points stay those of
+//   conv_pass_2d_plain. A block owns a 16 x 16 tile of the stage's output
+//   and NB = 64 (bf16) or 32 (f32) of its channels, and streams its input
+//   tile through the ring scb channels at a time (4 x scb for a 1 x 1 stage)
+//   with the weight rows of those channels and its NB columns, so its shared
+//   memory does not grow with C or cin. At C = 768 a pass does several
+//   hundred FLOP per byte whether or not its intermediates leave the chip.
 // - Each stage is an implicit GEMM on the tensor cores: M = pixels of the
 //   stage's output grid, N = C, K = kh * kw * cinp (cin zero-padded to the
 //   mma depth, 16 in bf16 and 8 in f32, which is how the down pass's
@@ -103,13 +114,14 @@ template <typename T>
 __host__ __device__ inline bool stream_input(int cin) {
   return cin >= 128 && cin % Cfg<T>::scb == 0;
 }
-// elements per pixel of a streamed input slice (odd 16-byte units for
-// ldmatrix rows; 8 pixels x 4 lanes over 32 banks for the f32 fragments)
-template <typename T>
-__host__ __device__ inline int slice_pitch() { return Cfg<T>::scb + Cfg<T>::pad; }
-template <typename T>
-__host__ __device__ inline size_t slice_elems(int th, int tw) {
-  return round8((size_t)(th + 4) * (tw + 4) * slice_pitch<T>());
+// elements per pixel of a streamed input slice of SB channels (odd 16-byte
+// units for ldmatrix rows; 8 pixels x 4 lanes over 32 banks for the f32
+// fragments)
+template <typename T, int SB>
+__host__ __device__ inline int slice_pitch() { return SB + Cfg<T>::pad; }
+template <typename T, int SB>
+__host__ __device__ inline size_t slice_elems(int ih, int iw) {
+  return round8((size_t)ih * iw * slice_pitch<T, SB>());
 }
 
 // Elements of one ring stage: a weight chunk, or a streamed input slice and
@@ -118,8 +130,25 @@ template <typename T>
 __host__ __device__ inline size_t ring_stage_elems(int cin, int C, int th, int tw) {
   const size_t chunk = (size_t)kc_rows(C) * w_pitch(C);
   if (!stream_input<T>(cin)) return chunk;
-  const size_t streamed = slice_elems<T>(th, tw) + (size_t)9 * Cfg<T>::scb * w_pitch(C);
+  const size_t streamed =
+      slice_elems<T, Cfg<T>::scb>(th + 4, tw + 4) + (size_t)9 * Cfg<T>::scb * w_pitch(C);
   return streamed > chunk ? streamed : chunk;
+}
+
+// The staged route: output channels per block, and input channels per ring
+// stage of a K x K stage whose input has cin channels (a 1 x 1 stage takes
+// 4 x scb where cin allows, so that a ring stage holds 64 or 32 rows of K).
+template <typename T>
+__host__ __device__ inline constexpr int staged_nb() { return 8 * Cfg<T>::nt; }
+template <typename T>
+__host__ __device__ inline int staged_sb(int K, int cin) {
+  return K == 1 && cin % (4 * Cfg<T>::scb) == 0 ? 4 * Cfg<T>::scb : Cfg<T>::scb;
+}
+// Elements of one ring stage of the staged route: the (th+K-1) x (tw+K-1)
+// input slice and its K * K * SB weight rows of NB columns.
+template <typename T, int K, int SB>
+__host__ __device__ inline size_t staged_ring_elems(int th, int tw) {
+  return slice_elems<T, SB>(th + K - 1, tw + K - 1) + (size_t)K * K * SB * w_pitch(staged_nb<T>());
 }
 
 // Shared memory layout, in elements of the compute type: A (stages 1 and
@@ -136,19 +165,21 @@ __host__ __device__ inline void buffer_elems(int cin, int C, int th, int tw, siz
 }
 
 // Rows [k0, k0 + kc_rows(C)) of one stage's weights, K ordered (tap, ci < cinp),
-// into a ring stage: zeros for ci >= cin, k >= ktot and columns >= C.
+// into a ring stage: zeros for ci >= cin, k >= ktot and columns >= C. A row
+// of w is ldc elements apart (ldc = C but in the staged route, whose block
+// takes C of the stage's ldc columns).
 template <typename T>
 __device__ __forceinline__ void load_w_chunk(T* dst, const T* __restrict__ w, int k0, int ktot,
-                                             int cin, int cinp, int C) {
+                                             int cin, int cinp, int C, int ldc) {
   constexpr int V = 16 / sizeof(T);
   const int C16 = round16(C), wp = w_pitch(C);
   const int nv = C16 / V, KC = kc_rows(C);
-  if (C % V == 0) {
+  if (C % V == 0 && ldc % V == 0) {
     for (int idx = threadIdx.x; idx < KC * nv; idx += kThreads) {
       const int r = idx / nv, col = (idx - r * nv) * V;
       const int k = k0 + r, tap = k / cinp, ci = k - tap * cinp;
       const bool ok = k < ktot && ci < cin && col < C;
-      const T* src = ok ? w + ((size_t)tap * cin + ci) * C + col : w;
+      const T* src = ok ? w + ((size_t)tap * cin + ci) * ldc + col : w;
       cp_async16(dst + r * wp + col, src, ok ? 16 : 0);
     }
   } else {  // rows not 16-byte aligned: plain loads (ordered by the ring's barrier)
@@ -156,44 +187,44 @@ __device__ __forceinline__ void load_w_chunk(T* dst, const T* __restrict__ w, in
       const int r = idx / C16, col = idx - r * C16;
       const int k = k0 + r, tap = k / cinp, ci = k - tap * cinp;
       const bool ok = k < ktot && ci < cin && col < C;
-      dst[r * wp + col] = ok ? w[((size_t)tap * cin + ci) * C + col] : T(0.f);
+      dst[r * wp + col] = ok ? w[((size_t)tap * cin + ci) * ldc + col] : T(0.f);
     }
   }
 }
 
-// Ring stage for input channels [cb, cb + scb) of a streamed stage 1: the
-// slice of the (th+4) x (tw+4) input tile at slice_pitch (zeros past the
-// image edge), then the weight rows (tap, ci) of those channels.
-template <typename T>
+// Ring stage for input channels [cb, cb + SB) of a streamed K x K stage:
+// the slice of the ih x iw input tile at slice_pitch (zeros past the image
+// edge), then the weight rows (tap, ci) of those channels (row stride ldc).
+template <typename T, int K, int SB>
 __device__ __forceinline__ void load_stream_chunk(T* dst, const T* __restrict__ xin, int H,
-                                                  int W, int cin, int gy0, int gx0, int th,
-                                                  int tw, const T* __restrict__ w, int cb,
-                                                  int C) {
-  constexpr int V = 16 / sizeof(T), SCB = Cfg<T>::scb, SP = Cfg<T>::scb + Cfg<T>::pad;
-  const int iw = tw + 4, n_pix = (th + 4) * iw;
-  for (int idx = threadIdx.x; idx < n_pix * (SCB / V); idx += kThreads) {
-    const int p = idx / (SCB / V), c = (idx % (SCB / V)) * V;
+                                                  int W, int cin, int gy0, int gx0, int ih,
+                                                  int iw, const T* __restrict__ w, int cb,
+                                                  int C, int ldc) {
+  constexpr int V = 16 / sizeof(T), SP = SB + Cfg<T>::pad;
+  const int n_pix = ih * iw;
+  for (int idx = threadIdx.x; idx < n_pix * (SB / V); idx += kThreads) {
+    const int p = idx / (SB / V), c = (idx % (SB / V)) * V;
     const int gy = gy0 + p / iw, gx = gx0 + p % iw;
     const bool ok = gy < H && gx < W;
     const T* src = ok ? xin + ((size_t)gy * W + gx) * cin + cb + c : xin;
     cp_async16(dst + p * SP + c, src, ok ? 16 : 0);
   }
-  T* wd = dst + slice_elems<T>(th, tw);
+  T* wd = dst + slice_elems<T, SB>(ih, iw);
   const int C16 = round16(C), wp = w_pitch(C);
-  if (C % V == 0) {
+  if (C % V == 0 && ldc % V == 0) {
     const int nv = C16 / V;
-    for (int idx = threadIdx.x; idx < 9 * SCB * nv; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < K * K * SB * nv; idx += kThreads) {
       const int r = idx / nv, col = (idx - r * nv) * V;
-      const int tap = r / SCB, ci = cb + r % SCB;
+      const int tap = r / SB, ci = cb + r % SB;
       const bool ok = col < C;
-      const T* src = ok ? w + ((size_t)tap * cin + ci) * C + col : w;
+      const T* src = ok ? w + ((size_t)tap * cin + ci) * ldc + col : w;
       cp_async16(wd + r * wp + col, src, ok ? 16 : 0);
     }
   } else {
-    for (int idx = threadIdx.x; idx < 9 * SCB * C16; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < K * K * SB * C16; idx += kThreads) {
       const int r = idx / C16, col = idx - r * C16;
-      const int tap = r / SCB, ci = cb + r % SCB;
-      wd[r * wp + col] = col < C ? w[((size_t)tap * cin + ci) * C + col] : T(0.f);
+      const int tap = r / SB, ci = cb + r % SB;
+      wd[r * wp + col] = col < C ? w[((size_t)tap * cin + ci) * ldc + col] : T(0.f);
     }
   }
 }
@@ -209,12 +240,12 @@ struct StageGeom {
   int sw, sp, cinp, n0, C16, wp;
 };
 
-// Where a streamed stage 1 reads its input: the image, its size and the
-// block's tile origin and size.
+// Where a streamed stage reads its input: the image, its size, the block's
+// input tile origin and the input tile's size.
 template <typename T>
 struct StreamSrc {
   const T* x;
-  int H, W, gy0, gx0, th, tw;
+  int H, W, gy0, gx0, ih, iw;
 };
 
 // Source offset of row k0 + kk of a K x K stage's K order (tap, ci), where
@@ -363,17 +394,19 @@ __device__ __forceinline__ __nv_bfloat16 round_to(float v, __nv_bfloat16*) {
 //   dst: (oh, ow) pixels of pitch dp in shared memory, or, when
 //        gout != nullptr, the image's NHWC output at tile origin
 //        (gy0, gx0), clipped to (h_out, w_out)
-// Warps take units of (MT*16 pixels x NT*8 channels) in rounds; every round
-// streams the stage's weights through the ring once, ring stages of
-// ring_stride elements. SB = scb: src is the global input in ss, streamed
-// through the ring scb channels at a time (stage 1 only; sw, sp describe
-// the slice).
+// C output channels, whose weight rows and output pixels are ldc elements
+// apart in device memory (ldc = C but in the staged route). Warps take
+// units of (MT*16 pixels x NT*8 channels) in rounds; every round streams
+// the stage's weights through the ring once, ring stages of ring_stride
+// elements. SB > 0: src is the global input in ss, streamed through the
+// ring SB channels at a time (sw, sp describe the slice).
 template <typename T, int K, int SB = 0>
 __device__ __forceinline__ void conv_stage(const T* src, int sw, int sp, int cin,
                                            const T* __restrict__ w, const float* __restrict__ bias,
-                                           int oh, int ow, int C, T* ring, int ring_stride,
-                                           T* dst, int dp, T* __restrict__ gout, int gy0, int gx0,
-                                           int h_out, int w_out, StreamSrc<T> ss = {}) {
+                                           int oh, int ow, int C, int ldc, T* ring,
+                                           int ring_stride, T* dst, int dp, T* __restrict__ gout,
+                                           int gy0, int gx0, int h_out, int w_out,
+                                           StreamSrc<T> ss = {}) {
   constexpr int S = Cfg<T>::stages, MT = Cfg<T>::mt, NT = Cfg<T>::nt;
   constexpr int WARPS = kThreads / 32, UM = 16 * MT, UN = 8 * NT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -389,13 +422,14 @@ __device__ __forceinline__ void conv_stage(const T* src, int sw, int sp, int cin
   const int KC = SB > 0 ? K * K * SB : kc_rows(C);
   const int n_chunks = SB > 0 ? cin / SB : (ktot + KC - 1) / KC;
   // a streamed ring stage holds the input slice first, its weights after it
-  const int w_at = SB > 0 ? (int)slice_elems<T>(ss.th, ss.tw) : 0;
+  const int w_at = SB > 0 ? (int)slice_elems<T, (SB > 0 ? SB : 1)>(ss.ih, ss.iw) : 0;
   auto load = [&](int i) {
     T* dst_i = ring + (i % S) * ring_stride;
     if constexpr (SB > 0)
-      load_stream_chunk(dst_i, ss.x, ss.H, ss.W, cin, ss.gy0, ss.gx0, ss.th, ss.tw, w, i * SB, C);
+      load_stream_chunk<T, K, SB>(dst_i, ss.x, ss.H, ss.W, cin, ss.gy0, ss.gx0, ss.ih, ss.iw, w,
+                                  i * SB, C, ldc);
     else
-      load_w_chunk(dst_i, w, i * KC, ktot, cin, s.cinp, C);
+      load_w_chunk(dst_i, w, i * KC, ktot, cin, s.cinp, C, ldc);
   };
   const int n_m = (P + UM - 1) / UM, n_n = (s.C16 + UN - 1) / UN;
   const int n_units = n_m * n_n;
@@ -469,7 +503,7 @@ __device__ __forceinline__ void conv_stage(const T* src, int sw, int sp, int cin
           } else {
             const int gy = gy0 + p / ow, gx = gx0 + p % ow;
             if (gy >= h_out || gx >= w_out) continue;
-            T* o = gout + ((size_t)gy * w_out + gx) * C;
+            T* o = gout + ((size_t)gy * w_out + gx) * ldc;
             if (ch < C) o[ch] = round_to(v0, o);
             if (ch + 1 < C) o[ch + 1] = round_to(v1, o);
           }
@@ -503,14 +537,15 @@ conv_pass_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float*
 
   const int iw = tw + 4, mh = th + 2, mw = tw + 2, mp = act_pitch<T>(C);
   if (stream_input<T>(cin)) {
-    const StreamSrc<T> ss = {xin, H, W, gy0, gx0, th, tw};
-    conv_stage<T, 3, Cfg<T>::scb>(nullptr, iw, slice_pitch<T>(), cin, w1, b1, mh, mw, C, ring,
-                                  ring_stride, buf_a, mp, nullptr, 0, 0, 0, 0, ss);
-    conv_stage<T, 1>(buf_a, mw, mp, C, w2, b2, mh, mw, C, ring, ring_stride, buf_x, mp, nullptr,
-                     0, 0, 0, 0);
-    conv_stage<T, 1>(buf_x, mw, mp, C, w3, b3, mh, mw, C, ring, ring_stride, buf_a, mp, nullptr,
-                     0, 0, 0, 0);
-    conv_stage<T, 3>(buf_a, mw, mp, C, w4, b4, th, tw, C, ring, ring_stride, nullptr, 0,
+    const StreamSrc<T> ss = {xin, H, W, gy0, gx0, th + 4, iw};
+    conv_stage<T, 3, Cfg<T>::scb>(nullptr, iw, slice_pitch<T, Cfg<T>::scb>(), cin, w1, b1, mh,
+                                  mw, C, C, ring, ring_stride, buf_a, mp, nullptr, 0, 0, 0, 0,
+                                  ss);
+    conv_stage<T, 1>(buf_a, mw, mp, C, w2, b2, mh, mw, C, C, ring, ring_stride, buf_x, mp,
+                     nullptr, 0, 0, 0, 0);
+    conv_stage<T, 1>(buf_x, mw, mp, C, w3, b3, mh, mw, C, C, ring, ring_stride, buf_a, mp,
+                     nullptr, 0, 0, 0, 0);
+    conv_stage<T, 3>(buf_a, mw, mp, C, w4, b4, th, tw, C, C, ring, ring_stride, nullptr, 0,
                      out + (size_t)img * h_out * w_out * C, gy0, gx0, h_out, w_out);
     return;
   }
@@ -540,14 +575,37 @@ conv_pass_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float*
   cp_async_commit();
   cp_async_wait<0>();
   // (the first stage's barrier orders these writes before use)
-  conv_stage<T, 3>(buf_x, iw, ip, cin, w1, b1, mh, mw, C, ring, ring_stride, buf_a, mp, nullptr,
+  conv_stage<T, 3>(buf_x, iw, ip, cin, w1, b1, mh, mw, C, C, ring, ring_stride, buf_a, mp,
+                   nullptr, 0, 0, 0, 0);
+  conv_stage<T, 1>(buf_a, mw, mp, C, w2, b2, mh, mw, C, C, ring, ring_stride, buf_x, mp, nullptr,
                    0, 0, 0, 0);
-  conv_stage<T, 1>(buf_a, mw, mp, C, w2, b2, mh, mw, C, ring, ring_stride, buf_x, mp, nullptr,
+  conv_stage<T, 1>(buf_x, mw, mp, C, w3, b3, mh, mw, C, C, ring, ring_stride, buf_a, mp, nullptr,
                    0, 0, 0, 0);
-  conv_stage<T, 1>(buf_x, mw, mp, C, w3, b3, mh, mw, C, ring, ring_stride, buf_a, mp, nullptr,
-                   0, 0, 0, 0);
-  conv_stage<T, 3>(buf_a, mw, mp, C, w4, b4, th, tw, C, ring, ring_stride, nullptr, 0,
+  conv_stage<T, 3>(buf_a, mw, mp, C, w4, b4, th, tw, C, C, ring, ring_stride, nullptr, 0,
                    out + (size_t)img * h_out * w_out * C, gy0, gx0, h_out, w_out);
+}
+
+// One K x K stage of the staged route: (B, H, W, cin) -> (B, H-K+1, W-K+1, C)
+// in the compute type. Block (tile, channel block, image) computes a th x tw
+// output tile and NB output channels, its input streamed through the ring.
+template <typename T, int K, int SB>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_stage_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ b,
+                  T* __restrict__ out, int H, int W, int cin, int C, int th, int tw) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NB = staged_nb<T>();
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const int ring_stride = (int)staged_ring_elems<T, K, SB>(th, tw);
+  const int h_out = H - K + 1, w_out = W - K + 1;
+  const int tiles_x = (w_out + tw - 1) / tw;
+  const int gy0 = (blockIdx.x / tiles_x) * th;
+  const int gx0 = (blockIdx.x % tiles_x) * tw;
+  const int n0 = blockIdx.y * NB, img = blockIdx.z;
+  const int ih = th + K - 1, iw = tw + K - 1;
+  const StreamSrc<T> ss = {x + (size_t)img * H * W * cin, H, W, gy0, gx0, ih, iw};
+  conv_stage<T, K, SB>(nullptr, iw, slice_pitch<T, SB>(), cin, w + n0, b + n0, th, tw,
+                       min(NB, C - n0), C, ring, ring_stride, nullptr, 0,
+                       out + (size_t)img * h_out * w_out * C + n0, gy0, gx0, h_out, w_out, ss);
 }
 
 // Relative cost of a pass with th x tw tiles over an H x W input: blocks x
@@ -572,6 +630,56 @@ size_t smem_bytes(int cin, int C, int th, int tw) {
   size_t a_elems, x_elems, w_elems;
   buffer_elems<T>(cin, C, th, tw, &a_elems, &x_elems, &w_elems);
   return (a_elems + x_elems + w_elems) * sizeof(T);
+}
+
+template <typename T, int K, int SB>
+int launch_stage(const T* x, const T* w, const float* b, T* out, int B, int H, int W, int cin,
+                 int C, int th, int tw, cudaStream_t stream) {
+  const size_t smem = Cfg<T>::stages * staged_ring_elems<T, K, SB>(th, tw) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(conv_stage_kernel<T, K, SB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = ((H - K + 1 + th - 1) / th) * ((W - K + 1 + tw - 1) / tw);
+  dim3 grid(tiles, (C + staged_nb<T>() - 1) / staged_nb<T>(), B);
+  conv_stage_kernel<T, K, SB><<<grid, kThreads, smem, stream>>>(x, w, b, out, H, W, cin, C, th,
+                                                                tw);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+size_t staged_smem_bytes(int K, int cin, int th, int tw) {
+  constexpr int scb = Cfg<T>::scb;
+  const size_t elems = K == 3 ? staged_ring_elems<T, 3, scb>(th, tw)
+                       : staged_sb<T>(1, cin) == scb ? staged_ring_elems<T, 1, scb>(th, tw)
+                                                     : staged_ring_elems<T, 1, 4 * scb>(th, tw);
+  return Cfg<T>::stages * elems * sizeof(T);
+}
+
+// The staged route: the pass's four stages, one launch each, x -> s0 -> s1
+// -> s0 -> out; s0 and s1 hold (B, H-2, W-2, C) in the compute type.
+template <typename T>
+int launch_staged(const void* x, const void* const* w, const float* const* b, void* out,
+                  void* s0, void* s1, int B, int H, int W, int cin, int C, int th, int tw,
+                  cudaStream_t stream) {
+  constexpr int scb = Cfg<T>::scb;
+  T* t0 = (T*)s0;
+  T* t1 = (T*)s1;
+  int rc = launch_stage<T, 3, scb>((const T*)x, (const T*)w[0], b[0], t0, B, H, W, cin, C, th,
+                                   tw, stream);
+  const T* src = t0;
+  for (int i = 1; i <= 2 && rc == 0; ++i) {
+    T* dst = i == 1 ? t1 : t0;
+    rc = staged_sb<T>(1, C) == scb
+             ? launch_stage<T, 1, scb>(src, (const T*)w[i], b[i], dst, B, H - 2, W - 2, C, C, th,
+                                       tw, stream)
+             : launch_stage<T, 1, 4 * scb>(src, (const T*)w[i], b[i], dst, B, H - 2, W - 2, C, C,
+                                           th, tw, stream);
+    src = dst;
+  }
+  if (rc == 0)
+    rc = launch_stage<T, 3, scb>(src, (const T*)w[3], b[3], (T*)out, B, H - 2, W - 2, C, C, th,
+                                 tw, stream);
+  return rc;
 }
 
 template <typename T>
@@ -606,6 +714,29 @@ long long conv_pass_2d_smem_bytes(int cin, int C, int th, int tw, int elem_bytes
 long long conv_pass_2d_cost(int cin, int C, int th, int tw, int H, int W, int elem_bytes) {
   return elem_bytes == 2 ? pass_cost<__nv_bfloat16>(cin, C, th, tw, H, W)
                          : pass_cost<float>(cin, C, th, tw, H, W);
+}
+
+// Bytes of dynamic shared memory one block of the staged route needs for a
+// K x K stage (K = 1 or 3) with cin input channels and a th x tw output tile.
+long long conv_pass_2d_staged_smem_bytes(int K, int cin, int th, int tw, int elem_bytes) {
+  return (long long)(elem_bytes == 2 ? staged_smem_bytes<__nv_bfloat16>(K, cin, th, tw)
+                                     : staged_smem_bytes<float>(K, cin, th, tw));
+}
+
+// The staged route (one launch per stage); s0, s1: scratch of B x (H-2) x
+// (W-2) x C elements each. cin and C must be multiples of 16 (bf16) or 8
+// (f32). Returns the first CUDA error code (0 = ok).
+int conv_pass_2d_staged_launch(const void* x, const void* w1, const void* b1, const void* w2,
+                               const void* b2, const void* w3, const void* b3, const void* w4,
+                               const void* b4, void* out, void* s0, void* s1, int B, int H,
+                               int W, int cin, int C, int th, int tw, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const void* w[4] = {w1, w2, w3, w4};
+  const float* b[4] = {(const float*)b1, (const float*)b2, (const float*)b3, (const float*)b4};
+  if (dtype == 0) return launch_staged<float>(x, w, b, out, s0, s1, B, H, W, cin, C, th, tw, s);
+  if (dtype == 1)
+    return launch_staged<__nv_bfloat16>(x, w, b, out, s0, s1, B, H, W, cin, C, th, tw, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the CUDA error code (0 = ok).

@@ -92,6 +92,36 @@ def compute_geometry(
     )
 
 
+def conv_pass_inputs(
+    input_size: Sequence[int],
+    downsampling_factors: Sequence[Sequence[int]],
+    in_channels: int,
+    num_fmaps: int,
+    fmap_inc_factor: int,
+    features_in_last_layer: int,
+) -> List[Tuple[str, Tuple[int, ...], int, int]]:
+    """``(name, input spatial size, C_in, C_out)`` of every conv pass of one
+    forward, in order: ``down``, ``down1``, .., ``bottom``, then the up
+    passes from the deepest to ``up`` (level 0)."""
+    g = compute_geometry(input_size, downsampling_factors)
+    factors = [tuple(int(f) for f in fac) for fac in downsampling_factors]
+    chans = [num_fmaps * fmap_inc_factor**level for level in range(len(factors) + 1)]
+    passes = []
+    size, c_prev = tuple(int(s) for s in input_size), in_channels
+    for level, fac in enumerate(factors):
+        passes.append((f"down{level or ''}", size, c_prev, chans[level]))
+        c_prev = chans[level]
+        size = tuple(s // f for s, f in zip(g.skip_sizes[level], fac))
+    passes.append(("bottom", size, c_prev, chans[-1]))
+    size = g.bottom_size
+    for i, level in enumerate(reversed(range(len(factors)))):
+        size = tuple(s * f for s, f in zip(size, factors[level]))
+        c_out = features_in_last_layer if level == 0 else chans[level]
+        passes.append((f"up{level or ''}", size, chans[level] + chans[level + 1], c_out))
+        size = g.up_sizes[i]
+    return passes
+
+
 def output_size(
     input_size: Sequence[int], downsampling_factors: Sequence[Sequence[int]]
 ) -> Tuple[int, ...]:

@@ -15,7 +15,10 @@ Port of the default, monolithic path of ``cellulus_tpu/ops/mean_shift.py``
 - nearest-center labels, ``-1`` beyond ``bandwidth`` of every center
   (``cluster_all=False``),
 - fit on a ``reduction_probability`` subsample drawn on the host with numpy
-  exactly as the JAX package draws it, predict on all points.
+  exactly as the JAX package draws it, predict on all points,
+- given seeds (seeded mean shift) in place of bin seeds,
+- a sweep of several bandwidths over one subsample draw
+  (:func:`mean_shift_sweep_fit_predict`).
 
 The fit and the recount are one call of
 :func:`~cellulus_tpu_torch.ops.mean_shift_fit.mean_shift_fit`: on the card,
@@ -78,6 +81,37 @@ def _predict(X: torch.Tensor, centers: torch.Tensor, bw2: float) -> torch.Tensor
     return labels
 
 
+def fit_subsample(X: np.ndarray, reduction_probability: float,
+                  rng: Optional[np.random.Generator]) -> np.ndarray:
+    """The rows of ``X`` the fit runs on: a ``reduction_probability`` draw
+    (all of ``X`` if the draw is empty), one ``rng.random(len(X))`` call."""
+    if reduction_probability < 1.0:
+        rng = rng or np.random.default_rng()
+        X_fit = X[rng.random(len(X)) < reduction_probability]
+        return X_fit if len(X_fit) else X
+    return X
+
+
+def fit_thresholds(bandwidth: float):
+    """``(bw2, stop_thresh)`` as the JAX package computes them: in float32
+    on the device."""
+    bw = np.float32(bandwidth)
+    return float(bw * bw), float(np.float32(1e-3) * bw)
+
+
+def launch_fit(X_fit: torch.Tensor, seeds, bandwidth: float, max_iter: int):
+    """The fit of ``seeds`` (host array or device tensor) on the device
+    points ``X_fit``, launched without waiting for it: ``(centers,
+    n_final)``."""
+    dev = X_fit.device
+    points = point_set(X_fit, torch.ones(len(X_fit), dtype=torch.bool, device=dev))
+    bw2, stop_thresh = fit_thresholds(bandwidth)
+    if isinstance(seeds, np.ndarray):
+        seeds = torch.from_numpy(np.ascontiguousarray(seeds, dtype=np.float32)).to(dev)
+    centers, n_final, _, _ = mean_shift_fit(seeds, points, bw2, stop_thresh, max_iter)
+    return centers, n_final
+
+
 def mean_shift_fit_predict(
     X: np.ndarray,
     bandwidth: float,
@@ -87,7 +121,8 @@ def mean_shift_fit_predict(
     rng: Optional[np.random.Generator] = None,
     device="cuda:0",
 ) -> np.ndarray:
-    """Fit on a subsample, predict labels for all rows of ``X``.
+    """Fit on a subsample, predict labels for all rows of ``X``. ``seeds``:
+    ``(S, d)`` given seeds, or None for bin seeds of the subsample.
 
     Returns int32 labels in ``[0, K)`` or ``-1`` for orphans.
     """
@@ -95,35 +130,54 @@ def mean_shift_fit_predict(
     n, d = X.shape
     if n == 0:
         return np.zeros((0,), np.int32)
-
-    if reduction_probability < 1.0:
-        rng = rng or np.random.default_rng()
-        X_fit = X[rng.random(n) < reduction_probability]
-        if len(X_fit) == 0:
-            X_fit = X
-    else:
-        X_fit = X
-
+    X_fit = fit_subsample(X, reduction_probability, rng)
     if seeds is None:
         seeds = bin_seeds(X_fit, bin_size=bandwidth)
-    seeds = np.asarray(seeds, dtype=np.float32)
     if len(seeds) == 0:
         return np.full((n,), -1, np.int32)
 
-    # the JAX package computes both in float32 on the device
-    bw = np.float32(bandwidth)
-    bw2 = float(bw * bw)
-    stop_thresh = float(np.float32(1e-3) * bw)
-
     dev = torch.device(device)
-    X_fit_t = torch.from_numpy(np.ascontiguousarray(X_fit)).to(dev)
-    points = point_set(X_fit_t, torch.ones(len(X_fit), dtype=torch.bool, device=dev))
-    centers, n_final, _, _ = mean_shift_fit(
-        torch.from_numpy(seeds).to(dev), points, bw2, stop_thresh, max_iter
-    )
+    centers, n_final = launch_fit(
+        torch.from_numpy(np.ascontiguousarray(X_fit)).to(dev), seeds, bandwidth, max_iter)
+    bw2 = fit_thresholds(bandwidth)[0]
     kept = _dedupe(centers, n_final, bw2)
     labels = _predict(torch.from_numpy(X).to(dev), kept, bw2)
     return labels.cpu().numpy().astype(np.int32)
+
+
+def mean_shift_sweep_fit_predict(
+    X: np.ndarray,
+    bandwidths,
+    reduction_probability: float = 1.0,
+    max_iter: int = 300,
+    rng: Optional[np.random.Generator] = None,
+    device="cuda:0",
+) -> np.ndarray:
+    """Mean shift at each of K bandwidths over ONE fit subsample draw (the
+    JAX package's ``mean_shift_sweep_fit_predict``; its results differ from
+    K serial :func:`mean_shift_fit_predict` calls only by that shared draw).
+    Every input is uploaded first (a copy from pageable host memory waits
+    for the stream), then the K fits launch one after another on one stream
+    with no host sync between them; then each is deduplicated and
+    predicted. Returns ``(K, N)`` int32 labels."""
+    X = np.asarray(X, dtype=np.float32)
+    n, d = X.shape
+    bandwidths = [float(b) for b in bandwidths]
+    if n == 0:
+        return np.zeros((len(bandwidths), 0), np.int32)
+    X_fit = fit_subsample(X, reduction_probability, rng)
+    dev = torch.device(device)
+    X_fit_t = torch.from_numpy(np.ascontiguousarray(X_fit)).to(dev)
+    X_t = torch.from_numpy(X).to(dev)
+    seeds = [torch.from_numpy(bin_seeds(X_fit, bin_size=b)).to(dev) for b in bandwidths]
+    fits = [launch_fit(X_fit_t, s, b, max_iter) if len(s) else None
+            for s, b in zip(seeds, bandwidths)]
+    labels = np.full((len(bandwidths), n), -1, np.int32)
+    for k, (b, fit) in enumerate(zip(bandwidths, fits)):
+        if fit is not None:
+            bw2 = fit_thresholds(b)[0]
+            labels[k] = _predict(X_t, _dedupe(*fit, bw2), bw2).cpu().numpy()
+    return labels
 
 
 def add_coordinate_grid(embedding_mean: np.ndarray) -> np.ndarray:
@@ -148,6 +202,7 @@ def mean_shift_segmentation(
     max_iter: int = 300,
     rng: Optional[np.random.Generator] = None,
     device="cuda:0",
+    seeds: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Segment one sample's embeddings into instances.
 
@@ -155,6 +210,8 @@ def mean_shift_segmentation(
         embedding_mean: ``(1, D, *spatial)`` or ``(D, *spatial)`` offsets.
         embedding_std: ``(*spatial,)`` uncertainty channel.
         threshold: foreground threshold (std < threshold is foreground).
+        seeds: optional ``(P, D)`` x-first seed coordinates (bin seeds of
+            the fit subsample when None).
 
     Returns:
         ``(*spatial,)`` int32 labels; background and orphans are 0.
@@ -172,7 +229,7 @@ def mean_shift_segmentation(
     labels = mean_shift_fit_predict(
         X,
         bandwidth=bandwidth,
-        seeds=None,
+        seeds=seeds,
         reduction_probability=reduction_probability,
         max_iter=max_iter,
         rng=rng,

@@ -79,6 +79,23 @@ def mean_shift_fit_plain(
     return centers, n_final, frozen, n_iter
 
 
+def near_boundary(centers: torch.Tensor, points: PointSet, bw2: float) -> torch.Tensor:
+    """Per center: does a valid point lie within rounding of its ball's
+    boundary (float64 squared distance within ``1e-6 (|c|^2 + |x|^2) + 1e-5
+    bw2`` of ``bw2``)? Two fits that sum ``c.x`` and the coordinates in other
+    orders may decide such a point's ball test differently."""
+    x = points.x.double()
+    xn = (x * x).sum(1)
+    out = torch.zeros(len(centers), dtype=torch.bool, device=centers.device)
+    for i in range(0, len(centers), 64):
+        c = centers[i:i + 64].double()
+        cn = (c * c).sum(1)
+        d2 = ((c[:, None, :] - x[None]) ** 2).sum(-1)
+        tol = 1e-6 * (cn[:, None] + xn[None]) + 1e-5 * bw2
+        out[i:i + 64] = (((d2 - bw2).abs() <= tol) & points.valid[None]).any(1)
+    return out
+
+
 def mean_shift_fit_plan(S: int, N: int, d: int):
     """The launch the kernel takes for ``(S, N, d)`` on the current card:
     ``(seeds per group, clusters, resident points per block, shared bytes)``."""

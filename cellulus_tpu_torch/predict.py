@@ -46,7 +46,14 @@ def predict_sample(
     compute_dtype=torch.float32,
 ) -> np.ndarray:
     """``(C, *spatial)`` raw sample -> ``(D + 1, *spatial)`` float32
-    embeddings."""
+    embeddings. With ``transfer_precision = "float16"`` each tile batch's
+    TTA output is rounded to float16 on the device before it is copied to
+    the host (stored as float32), as the JAX package does."""
+    if inference_config.spatial_shards >= 2:
+        raise NotImplementedError(
+            "spatial_shards >= 2 (a whole-sample sharded forward) is not ported yet "
+            "(ROADMAP: M13, multi-GPU)"
+        )
     device = torch.device(device)
     raw = np.asarray(raw)
     spatial = raw.shape[1:]
@@ -62,6 +69,9 @@ def predict_sample(
     ))
     gen = seeded_generator(device, inference_config.seed, sample_seed)
     tb = max(1, int(inference_config.tile_batch_size))
+    transfer_dtype = (
+        torch.float16 if inference_config.transfer_precision == "float16" else torch.float32
+    )
     result = np.zeros((D + 1, *spatial), dtype=np.float32)
 
     def read(origin):
@@ -79,7 +89,7 @@ def predict_sample(
         )
         with torch.no_grad():
             out = tta_embeddings(model, tiles, uniform, p, nii, compute_dtype)
-        out = np.moveaxis(out.cpu().numpy(), -1, 1)  # (T, D + 1, *out_tile)
+        out = np.moveaxis(out.to(transfer_dtype).cpu().numpy(), -1, 1)  # (T, D + 1, *out_tile)
         for tile_out, origin in zip(out, batch):
             sel = tuple(slice(o, min(o + t, s)) for o, t, s in zip(origin, out_tile, spatial))
             crop = tuple(slice(0, sl.stop - sl.start) for sl in sel)

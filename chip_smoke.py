@@ -10,7 +10,10 @@ Phases, each failing the run (non-zero exit) if it fails:
 3. K1, the fused conv pass: the kernel against its plain version at the
    three pass shapes of the full-width 2D model's tile batch, in float32
    (TF32 off) and bfloat16, with the design each shape takes, its TFLOP/s
-   and its plain, cuDNN and bound times;
+   and its plain, cuDNN and bound times; then ``[K1-wide]``: the wrapper's
+   Python mirrors of the kernel's size and cost formulas against the
+   library's, and K1 at the passes of ``examples/real-data``'s 256-fmap
+   model (tile batch 16), whose bottom pass takes the staged route;
 4. K2, the 3x3 filter gradient: the kernel against its plain version at the
    six dw shapes of the full-width train step, float32 and bfloat16, two
    launches bit-identical, with the plan each shape takes (tensor or CUDA
@@ -37,7 +40,13 @@ Phases, each failing the run (non-zero exit) if it fails:
    ``examples/2d/infer.toml``'s bfloat16; each run must launch K1 18 times,
    the fit kernel once per sample and ``ball_stats`` never; after the
    float32 run, sample 0's detect is timed in parts (``[detect]``) and its
-   fit input is K3-fit's third timed input;
+   fit input is K3-fit's third timed input; ``[variants]``: greedy, seeded
+   mean shift, the bandwidth sweep and device detect on the bf16 run's
+   embeddings, card against CPU (differences only where rounding explains
+   them), seconds a sample, fit launches, each new path's fit timed;
+   ``[wide-main]``: ``cellulus_tpu_torch.infer`` at
+   ``examples/real-data/infer.toml``'s model and settings on one 512^2
+   sample (bf16, pipelined off), K1 launched 9 times;
 9. the train main path: ``cellulus_tpu_torch.train`` at the full width of
    ``examples/2d/train.toml`` (bf16, elastic on, device pairs) for 20 steps,
    K2 launched 6 times a step, a resume, 3 float32 steps, then infer on the
@@ -57,8 +66,13 @@ Phases, each failing the run (non-zero exit) if it fails:
     (``[3d-detect]``) detect in parts, labels on a small 3D fixture against
     the plain version, and the fit kernel timed at d = 3 on sample 0's fit
     input (``[K3-fit]``);
-14. the kernels line (JSON, one row per kernel and input type; the fit at
-    d = 2 and d = 3), then the last line ``{"ok": true, "device": {...}}``.
+14. ``[3d-greedy]``: ``examples/3d/infer.toml`` as it is (greedy clustering)
+    on the bf16 3D embeddings through detect, segment and evaluate, greedy's
+    iterations, host syncs and seconds a sample, and a 48^3 crop card
+    against CPU;
+15. the kernels line (JSON, one row per kernel and input type; K1 at both
+    widths; the fit at d = 2 and d = 3 and on each new detect path), then
+    the last line ``{"ok": true, "device": {...}}``.
 
 Needs CUDA: without it the script exits non-zero and prints no result.
 Imports nothing of JAX or of the JAX package.
@@ -83,20 +97,31 @@ import cellulus_tpu_torch
 from cellulus_tpu_torch.configs import ExperimentConfig
 from cellulus_tpu_torch.io import zarr
 from cellulus_tpu_torch.models import UNet, compute_geometry
+from cellulus_tpu_torch.models.geometry import conv_pass_inputs
 from cellulus_tpu_torch.detect import detect_sample, mean_center_embeddings, sample_rng
 from cellulus_tpu_torch.ops import mean_shift as msops
 from cellulus_tpu_torch.ops.ball_stats import ball_stats, ball_stats_plain, point_set
 from cellulus_tpu_torch.ops.conv_dw import conv3x3_dw, conv3x3_dw_design, conv3x3_dw_plain
+from cellulus_tpu_torch.ops import conv_pass
 from cellulus_tpu_torch.ops.conv_pass import conv_pass_2d, conv_pass_2d_design, conv_pass_2d_plain
 from cellulus_tpu_torch.ops.mean_shift import mean_shift_fit_predict
 from cellulus_tpu_torch.ops.mean_shift_fit import (
     mean_shift_fit,
     mean_shift_fit_plain,
     mean_shift_fit_plan,
+    near_boundary,
 )
 from cellulus_tpu_torch.ops.components import filter_relabel
+from cellulus_tpu_torch.ops.greedy_cluster import greedy_cluster
+from cellulus_tpu_torch.ops.peaks import smooth_peak_seeds
+from cellulus_tpu_torch.utils.parity import (
+    mean_shift_fit_inputs,
+    unexplained_greedy,
+    unexplained_mean_shift,
+)
 from cellulus_tpu_torch.ops.morphology import halo_removal
 from cellulus_tpu_torch.ops.otsu import threshold_otsu
+from cellulus_tpu_torch.predict import tile_origins
 from cellulus_tpu_torch.utils import kernels
 
 # H100 SXM published peaks (dense): HBM bytes/s; the least time of K1 and
@@ -119,6 +144,12 @@ TRAIN_BATCH = 8
 DEVICE = "cuda:0"
 OBJECT_SIZE = 40
 IMAGE_SIZE = 512
+# the model of examples/real-data/infer.toml (the repo's real-data recipe),
+# and the tile batch at which [K1-wide] times its passes: small enough for
+# the float32 up pass (1024 -> 64 channels) and its plain version
+MODEL_WIDE = dict(num_fmaps=256, fmap_inc_factor=3, features_in_last_layer=64,
+                  downsampling_factors=[[2, 2]])
+K1_WIDE_BATCH = 16
 # the long fit: the reference's trained 2D fit scale (87k fit points), here
 # uniform in the image so that seeds wander; and K3's (seeds, points) as a fit
 LONG_FIT_POINTS = 87000
@@ -293,28 +324,25 @@ def _library_pass(x, params, dtype):
     return y
 
 
-def pass_shapes(batch):
-    g = compute_geometry((CROP, CROP), MODEL["downsampling_factors"])
-    f, inc = MODEL["num_fmaps"], MODEL["fmap_inc_factor"]
-    (skip,), bottom_in = g.skip_sizes, tuple(s // 2 for s in g.skip_sizes[0])
-    up_in = tuple(s * 2 for s in g.bottom_size)
-    return [
-        ("down", (batch, CROP, CROP, 1), f),
-        ("bottom", (batch, *bottom_in, f), f * inc),
-        ("up", (batch, *up_in, f + f * inc), MODEL["features_in_last_layer"]),
-    ]
+def pass_shapes(batch, model=MODEL):
+    """``(name, NHWC input shape, C_out)`` of every conv pass of a tile
+    batch of ``batch`` images at ``model``'s width."""
+    return [(name, (batch, *size, c_in), c_out) for name, size, c_in, c_out in conv_pass_inputs(
+        (CROP, CROP), model["downsampling_factors"], 1, model["num_fmaps"],
+        model["fmap_inc_factor"], model["features_in_last_layer"])]
 
 
-def phase_conv_pass(device):
-    """K1 against its plain version at the tile batch's pass shapes, in both
-    compute types; returns the sums per type."""
-    batch = TILE_BATCH * 2 * NUM_INFER_ITERATIONS
+def phase_conv_pass(device, model=MODEL, batch=TILE_BATCH * 2 * NUM_INFER_ITERATIONS,
+                    tag="K1"):
+    """K1 against its plain version at the pass shapes of a tile batch of
+    ``batch`` images at ``model``'s width, in both compute types; returns
+    the sums per type."""
     gen = torch.Generator().manual_seed(1)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                  "max_abs_err": 0.0, "flops": 0.0, "nbytes": 0.0}
-        for name, shape, c_out in pass_shapes(batch):
+        for name, shape, c_out in pass_shapes(batch, model):
             params = _pass_params(shape[-1], c_out, gen, device)
             x = torch.rand(shape, generator=gen).to(device)
             got = conv_pass_2d(x, params, dtype)
@@ -342,7 +370,7 @@ def phase_conv_pass(device):
             nbytes = e * (B * H * W * c_in + B * (H - 4) * (W - 4) * c_out) + e * sum(
                 p["w"].numel() for p in params.values()) + 4 * 4 * c_out
             bound_ms = 1e3 * max(flops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S)
-            print(f"[K1] {name:6s} {str(dtype):14s} {tuple(shape)}->{c_out}: "
+            print(f"[{tag}] {name:6s} {str(dtype):14s} {tuple(shape)}->{c_out}: "
                   f"{conv_pass_2d_design(shape, c_out, dtype)}; "
                   f"max_abs_err {max_err:.3g} ({tol_text}); kernel {ms:.2f} ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, "
@@ -355,11 +383,37 @@ def phase_conv_pass(device):
             torch.cuda.empty_cache()
         by_ops = total.pop("flops") / PEAK_OPS[dtype] >= total.pop("nbytes") / HBM_BYTES_PER_S
         total["bound_by"] = "operations" if by_ops else "bytes"
-        print(f"[K1] per tile batch of {batch} images, {dtype}: kernel {total['ms']:.2f} ms, "
+        print(f"[{tag}] per tile batch of {batch} images, {dtype}: kernel {total['ms']:.2f} ms, "
               f"plain {total['plain_ms']:.2f} ms, cuDNN {total['library_ms']:.2f} ms, bound "
-              f"{total['bound_ms']:.3f} ms ({total['bound_by']})")
+              f"{total['bound_ms']:.3f} ms ({total['bound_by']})", flush=True)
         out[dtype] = total
     return out
+
+
+def phase_k1_plans():
+    """The wrapper chooses K1's route and tile from Python mirrors of the
+    source's size and cost formulas: hold them against the library's at
+    every candidate tile of every pass of both models, both types."""
+    lib = kernels.load("conv_pass", conv_pass._SIGNATURES)
+    n = 0
+    for model in (MODEL, MODEL_WIDE):
+        for _, (_, H, W, c_in), c_out in pass_shapes(1, model):
+            for elem in (2, 4):
+                for t in conv_pass.TILE_CANDIDATES:
+                    got = (lib.conv_pass_2d_smem_bytes(c_in, c_out, t, t, elem),
+                           lib.conv_pass_2d_cost(c_in, c_out, t, t, H, W, elem),
+                           *(lib.conv_pass_2d_staged_smem_bytes(k, ci, t, t, elem)
+                             for k, ci in ((3, c_in), (1, c_out), (3, c_out))))
+                    want = (conv_pass.fused_smem_bytes(c_in, c_out, t, t, elem),
+                            conv_pass.fused_cost(c_in, c_out, t, t, H, W, elem),
+                            *(conv_pass.staged_smem_bytes(k, ci, t, t, elem)
+                              for k, ci in ((3, c_in), (1, c_out), (3, c_out))))
+                    if got != want:
+                        fail(f"K1 plan mirrors differ from the library at {c_in}->{c_out}, "
+                             f"tile {t}, {elem} B: library {got}, mirror {want}")
+                    n += 1
+    print(f"[K1-wide] the wrapper's mirrors of the size and cost formulas equal the library's "
+          f"at {n} (pass, type, tile) cases of the 64- and 256-fmap models", flush=True)
 
 
 def dw_shapes(batch):
@@ -501,21 +555,6 @@ def _fit_problem(X, seeds, bandwidth, device, valid=None):
             float(bw * bw), float(np.float32(1e-3) * bw))
 
 
-def _near_boundary(centers, points, bw2):
-    """Per center: does a valid point lie within rounding of its ball's
-    boundary (float64 distance within 1e-6 (|c|^2 + |x|^2) + 1e-5 bw^2)?"""
-    x = points.x.double()
-    xn = (x * x).sum(1)
-    out = torch.zeros(len(centers), dtype=torch.bool, device=centers.device)
-    for i in range(0, len(centers), 64):
-        c = centers[i:i + 64].double()
-        cn = (c * c).sum(1)
-        d2 = ((c[:, None, :] - x[None]) ** 2).sum(-1)
-        tol = 1e-6 * (cn[:, None] + xn[None]) + 1e-5 * bw2
-        out[i:i + 64] = (((d2 - bw2).abs() <= tol) & points.valid[None]).any(1)
-    return out
-
-
 def _fit_step_check(name, seeds, points, bw2, stop):
     """One fit step (max_iter = 1, then the recount) against the plain
     version. A seed is left out when a point lies within rounding of its
@@ -527,8 +566,8 @@ def _fit_step_check(name, seeds, points, bw2, stop):
     ref = mean_shift_fit_plain(seeds, points, bw2, stop, 1)
     torch.cuda.synchronize()
     shift = (ref[0] - seeds).norm(dim=1)
-    undecided = (_near_boundary(seeds, points, bw2) | _near_boundary(ref[0], points, bw2)
-                 | _near_boundary(got[0], points, bw2)
+    undecided = (near_boundary(seeds, points, bw2) | near_boundary(ref[0], points, bw2)
+                 | near_boundary(got[0], points, bw2)
                  | ((shift - stop).abs() <= 1e-4 * math.sqrt(bw2)))
     ok = ~undecided
     err = (got[0] - ref[0]).abs()
@@ -1035,6 +1074,189 @@ def phase_learn(work):
           f"F1 {f1_start:.4f}, SEG {results['000000.pth']['SEG']:.4f}")
 
 
+def phase_wide_main(work):
+    """The model of examples/real-data/infer.toml (256 fmaps, factor 3) with
+    its inference settings (bf16, crop 252, tile batch 4) through
+    ``cellulus_tpu_torch.infer`` on one synthetic 512^2 sample, seeded
+    weights, ``pipelined`` off (pipelined inference is not ported): K1 runs
+    every pass, the bottom one (256 -> 768) by its staged route. Returns the
+    launches."""
+    wide = os.path.join(work, "wide")
+    os.makedirs(wide)
+    container = write_blob_container(os.path.join(wide, "data.zarr"), 1, IMAGE_SIZE, seed=15)
+    checkpoint = os.path.join(wide, "weights.pth")
+    save_random_checkpoint(checkpoint, seed=16, **MODEL_WIDE)
+    config = ExperimentConfig.from_toml(os.path.join(REPO, "examples", "real-data", "infer.toml"))
+    mc, ic = config.model_config, config.inference_config
+    if ({k: getattr(mc, k) for k in MODEL_WIDE} != MODEL_WIDE or ic.precision != "bfloat16"
+            or ic.crop_size != [CROP, CROP] or ic.tile_batch_size != TILE_BATCH):
+        fail("examples/real-data/infer.toml differs from the settings this script assumes")
+    mc.checkpoint = checkpoint
+    ic.pipelined = False
+    ic.device = DEVICE
+    for dc, name in ((ic.dataset_config, "raw"), (ic.prediction_dataset_config, "embeddings"),
+                     (ic.detection_dataset_config, "detection"),
+                     (ic.segmentation_dataset_config, "segmentation")):
+        dc.container_path, dc.dataset_name = container, name
+    conv_pass_2d.launches = mean_shift_fit.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    stage_seconds = {}
+    t0 = time.perf_counter()
+    with contextlib.chdir(wide), logged(os.path.join(wide, "infer.log")):
+        cellulus_tpu_torch.infer(config, stage_seconds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"conv_pass_2d": conv_pass_2d.launches, "mean_shift_fit": mean_shift_fit.launches}
+    f = zarr.open(container, "r")
+    emb, seg = f["embeddings"][...], f["segmentation"][...]
+    if emb.shape != (1, 3, IMAGE_SIZE, IMAGE_SIZE) or not np.isfinite(emb).all():
+        fail(f"[wide-main]: embeddings {emb.shape}, finite={np.isfinite(emb).all()}")
+    if seg.shape != (1, 1, IMAGE_SIZE, IMAGE_SIZE):
+        fail(f"[wide-main]: segmentation shape {seg.shape}")
+    out_tile = compute_geometry((CROP, CROP), MODEL_WIDE["downsampling_factors"]).output_size
+    tiles = math.prod(len(tile_origins(max(IMAGE_SIZE, o), o)) for o in out_tile)
+    expected = 3 * math.ceil(tiles / TILE_BATCH)  # 3 passes per tile batch
+    if launches != {"conv_pass_2d": expected, "mean_shift_fit": 1}:
+        fail(f"[wide-main]: launches {launches}, expected {expected} K1 and 1 fit")
+    plans = [f"{name} {conv_pass.conv_pass_2d_plan(shape, c, torch.bfloat16)}"
+             for name, shape, c in pass_shapes(TILE_BATCH * 2 * NUM_INFER_ITERATIONS, MODEL_WIDE)]
+    print(f"[wide-main] examples/real-data/infer.toml's model and settings (bf16, pipelined "
+          f"off) on 1 x {IMAGE_SIZE}^2: stages (s) "
+          f"{json.dumps({k: round(v, 3) for k, v in stage_seconds.items()})}, total {wall:.2f}s; "
+          f"K1 plans {plans}; launches {json.dumps(launches)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+          f"{int(len(np.unique(seg)) - 1)} instances", flush=True)
+    return launches
+
+
+# -- the detect variants ---------------------------------------------------------------
+
+VARIANTS = {
+    "meanshift": {},  # the host path, the yardstick of device detect
+    "greedy": dict(clustering="greedy"),
+    "seeds": dict(use_seeds=True),
+    "sweep": dict(vectorized_bandwidth_sweep=True, num_bandwidths=2),
+    "device_detect": dict(device_detect=True),
+}
+# the fit input each mean-shift variant prepares (device detect: the host
+# path's)
+_FIT_KIND = {"meanshift": "meanshift", "seeds": "seeds", "sweep": "sweep",
+             "device_detect": "meanshift"}
+# a fit of the card and one of the CPU may part ways at this share of the
+# seeds at most, each at a seed whose trajectory meets a point within
+# rounding of a ball's boundary
+MAX_PARTED_SHARE = 0.02
+
+
+def _explain_fit(mine, theirs, fit_input, ic, device):
+    """Card against CPU detections of one mean-shift fit input: the seeds
+    whose ends part ways (the kernel's against the plain version's), each
+    of which must meet a point within rounding of a ball's boundary on its
+    trajectory, and every disagreeing pixel explained by those or by
+    predict rounding. Returns the parted seeds."""
+    mask, X, X_fit, seeds, bandwidth = fit_input
+    bw2, stop = msops.fit_thresholds(bandwidth)
+    max_iter = ic.mean_shift_max_iterations
+    card = _fit_problem(X_fit, seeds, bandwidth, device)
+    ends_card, n_card, _, _ = mean_shift_fit(*card, max_iter)
+    cpu = _fit_problem(X_fit, seeds, bandwidth, "cpu")
+    trajectory = []
+
+    def recorded(c, p, b):
+        trajectory.append(c.clone())
+        return ball_stats_plain(c, p, b)
+
+    ends_cpu, n_cpu, _, _ = mean_shift_fit_plain(*cpu, max_iter, recorded)
+    parted = np.flatnonzero((ends_card.cpu() - ends_cpu).norm(dim=1).numpy() > 1e-3)
+    for i in parted:
+        if not any(bool(near_boundary(c[i:i + 1], cpu[1], bw2)[0]) for c in trajectory):
+            fail(f"[variants] seed {i} parts ways between card and CPU with no point within "
+                 "rounding of a ball's boundary on its trajectory")
+    if len(parted) > MAX_PARTED_SHARE * len(seeds):
+        fail(f"[variants] {len(parted)} of {len(seeds)} seeds part ways between card and CPU")
+    bad, _, _ = unexplained_mean_shift(
+        mine, theirs, mask, X, msops._dedupe(ends_card, n_card, bw2).cpu().numpy(),
+        msops._dedupe(ends_cpu, n_cpu, bw2).numpy(), bw2)
+    if bad:
+        fail(f"[variants] {len(bad)} pixels differ between card and CPU beyond rounding")
+    return len(parted)
+
+
+def phase_variants(container, device):
+    """Each 2D detect variant (greedy, seeded mean shift, the bandwidth
+    sweep over 2 bandwidths, device detect, and the default host path as
+    device detect's yardstick) on the [main] bf16 run's embeddings, sample by sample on the card and on the CPU. The card's
+    detections must be the CPU's partition, or differ only where rounding
+    explains it: for mean shift, fit seeds that part ways at a point within
+    rounding of a ball's boundary (``near_boundary``) and predict rounding;
+    for greedy, pixels whose affinity to a seed lies within rounding of 0.5.
+    Returns per variant the fit launches and sample 0's first fit input."""
+    f = zarr.open(container, "r")
+    embs = [np.asarray(f["embeddings"][s], dtype=np.float32) for s in range(2)]
+    out = {}
+    for variant, settings in VARIANTS.items():
+        ic = infer_config(container, "unused.pth", MODEL, device=DEVICE, **settings).inference_config
+        ic.bandwidth = 0.5 * OBJECT_SIZE
+        ic.min_size = int(0.1 * np.pi * (OBJECT_SIZE**2) / 4)
+        mean_shift_fit.launches = 0
+        seconds, results, stats = [], [], []
+        for s in range(2):
+            stat = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results.append(detect_sample(embs[s], ic, 2, sample_rng(ic.seed, s), device, stat))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            stats.append(stat)
+        launches = mean_shift_fit.launches
+        parted, differing, same = 0, 0, 0
+        for s in range(2):
+            cpu_stat = {}
+            cpu = detect_sample(embs[s], ic, 2, sample_rng(ic.seed, s), "cpu", cpu_stat)
+            if cpu[0] != results[s][0] or not np.array_equal(cpu[1], results[s][1]):
+                fail(f"[variants] {variant} sample {s}: threshold {results[s][0]} on the card, "
+                     f"{cpu[0]} on the CPU, or their masks differ")
+            fits = None
+            for k in range(ic.num_bandwidths):
+                mine, theirs = results[s][3][k], cpu[3][k]
+                if _same_partition(mine.ravel(), theirs.ravel()):
+                    same += 1
+                    continue
+                differing += 1
+                if variant == "greedy":
+                    emb = msops.add_coordinate_grid(embs[s][:2]).reshape(2, -1).T
+                    bad = unexplained_greedy(mine, theirs, emb, stats[s]["greedy"][k]["seeds"],
+                                             cpu_stat["greedy"][k]["seeds"], ic.bandwidth / 2**k)
+                    if bad:
+                        fail(f"[variants] greedy sample {s}: {len(bad)} pixels differ between "
+                             "card and CPU beyond rounding")
+                    continue
+                fits = fits or mean_shift_fit_inputs(_FIT_KIND[variant], embs[s], ic, s)
+                parted += _explain_fit(mine, theirs, fits[k], ic, device)
+        expected = {"meanshift": 2, "greedy": 0, "seeds": 2, "sweep": 4,
+                    "device_detect": 2}[variant]
+        if launches != expected:
+            fail(f"[variants] {variant}: the fit kernel launched {launches} times, expected "
+                 f"{expected}")
+        extra = ""
+        if variant == "greedy":
+            g = [st["greedy"][0] for st in stats]
+            if any(x["iterations"] > 64 and x["host_syncs"] >= x["iterations"] for x in g):
+                fail(f"[variants] greedy synced with the host once an iteration or more: {g}")
+            extra = "; greedy " + ", ".join(
+                f"{x['iterations']} iterations, {x['host_syncs']} host syncs, "
+                f"{x['instances']} instances" for x in g)
+        print(f"[variants] {variant}: {', '.join(f'{t:.3f}' for t in seconds)} s a sample on the "
+              f"card; fit launches {launches}; card vs CPU: {same} (sample, bandwidth) the same "
+              f"partition, {differing} differing only where rounding explains it ({parted} fit "
+              f"seeds parted at a ball's boundary){extra}", flush=True)
+        fit0 = None
+        if variant != "greedy":
+            fit0 = mean_shift_fit_inputs(_FIT_KIND[variant], embs[0], ic, 0)[0]
+        out[variant] = {"launches": launches, "fit_input": fit0, "ic": ic}
+    return out
+
+
 # -- the 3D main path ----------------------------------------------------------------
 
 
@@ -1252,6 +1474,77 @@ def phase_main_3d(work, container, checkpoint):
     return launches, fit
 
 
+def phase_3d_greedy(work, container, checkpoint):
+    """examples/3d/infer.toml as it is (greedy clustering, bf16) on the
+    [3d-main] bf16 run's embeddings: detect, segment and evaluate through
+    ``cellulus_tpu_torch.infer``; greedy's iterations, host syncs,
+    instances and seconds a sample; then greedy on a 48^3 crop of sample 0,
+    the card against the CPU."""
+    config = ExperimentConfig.from_toml(os.path.join(REPO, "examples", "3d", "infer.toml"))
+    ic = config.inference_config
+    if ic.clustering != "greedy" or config.object_size != OBJECT_SIZE_3D:
+        fail("examples/3d/infer.toml differs from the settings this script assumes")
+    out = os.path.join(work, "greedy3d.zarr")
+    src = zarr.open(container, "r")
+    dst = zarr.open(out, "a")
+    for name in ("embeddings", "groundtruth"):
+        dst[name] = src[name][...]
+        dst[name].attrs.update(src[name].attrs.asdict())
+    config.model_config.checkpoint = checkpoint
+    ic.device = DEVICE
+    ic.dataset_config.container_path, ic.dataset_config.dataset_name = container, "raw"
+    ic.prediction_dataset_config = None
+    for dc in (ic.detection_dataset_config, ic.segmentation_dataset_config,
+               ic.evaluation_dataset_config):
+        dc.container_path = out
+    stage_seconds = {}
+    mean_shift_fit.launches = 0
+    with contextlib.chdir(work), logged(os.path.join(work, "greedy3d.log")):
+        results = cellulus_tpu_torch.infer(config, stage_seconds)
+    if results is None or not all(0.0 <= results[0][k] <= 1.0 for k in ("F1", "SEG")):
+        fail(f"[3d-greedy] evaluate results {results}")
+    if mean_shift_fit.launches:
+        fail(f"[3d-greedy] greedy clustering launched the fit kernel {mean_shift_fit.launches} "
+             "times")
+    seg = zarr.open(out, "r")["segmentation"][...]
+    instances = [int(len(np.unique(seg[s, 0])) - 1) for s in range(2)]
+    per_sample = []
+    for s in range(2):
+        emb = np.asarray(src["embeddings"][s], dtype=np.float32)
+        stat = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        detect_sample(emb, ic, 3, sample_rng(ic.seed, s), DEVICE, stat)
+        torch.cuda.synchronize()
+        g = stat["greedy"][0]
+        if g["iterations"] > 64 and g["host_syncs"] >= g["iterations"]:
+            fail(f"[3d-greedy] greedy synced with the host once an iteration or more: {g}")
+        per_sample.append(f"{time.perf_counter() - t0:.3f} s, {g['iterations']} iterations, "
+                          f"{g['host_syncs']} host syncs, {g['instances']} instances")
+    print(f"[3d-greedy] examples/3d/infer.toml (greedy, bf16) on the [3d-main] bf16 embeddings: "
+          f"stages (s) {json.dumps({k: round(v, 3) for k, v in stage_seconds.items()})}; "
+          f"instances per sample {instances}, F1 {results[0]['F1']:.4f}, SEG "
+          f"{results[0]['SEG']:.4f}; detect_sample on the card per sample: "
+          f"{'; '.join(per_sample)}", flush=True)
+
+    crop = np.asarray(src["embeddings"][0, :, :48, :48, :48], dtype=np.float32)
+    mask = crop[-1] < threshold_otsu(crop[-1])
+    got, ref = {}, {}
+    card = greedy_cluster(crop, mask, ic.bandwidth, ic.min_size, device=DEVICE, stats=got)
+    cpu = greedy_cluster(crop, mask, ic.bandwidth, ic.min_size, device="cpu", stats=ref)
+    same = _same_partition(card.ravel(), cpu.ravel())
+    if not same:
+        emb = msops.add_coordinate_grid(crop[:3]).reshape(3, -1).T
+        bad = unexplained_greedy(card, cpu, emb, got["seeds"], ref["seeds"], ic.bandwidth)
+        if bad:
+            fail(f"[3d-greedy] 48^3 crop: {len(bad)} voxels differ between card and CPU beyond "
+                 "rounding")
+    print(f"[3d-greedy] 48^3 crop of sample 0 (bw {ic.bandwidth}, min size {ic.min_size}): card "
+          f"and CPU {'the same partition' if same else 'differ only where rounding explains'} "
+          f"({got['instances']} and {ref['instances']} instances, {got['iterations']} and "
+          f"{ref['iterations']} iterations)", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1262,6 +1555,8 @@ def main() -> None:
     phase_card()
     phase_build()
     k1 = phase_conv_pass(device)
+    phase_k1_plans()
+    k1_wide = phase_conv_pass(device, MODEL_WIDE, K1_WIDE_BATCH, "K1-wide")
     k2 = phase_conv_dw(device)
     k3 = phase_ball_stats(device)
     phase_fit(device)
@@ -1269,11 +1564,19 @@ def main() -> None:
         phase_reference_checks(work, device)
         torch.cuda.reset_peak_memory_stats()
         infer_launches, k3_fit = phase_main_path(work)
+        variants = phase_variants(os.path.join(work, "data.zarr"), device)
+        variant_fits = {
+            v: time_fit(f"{v} input (sample 0, bf16 embeddings)",
+                        *_fit_problem(*r["fit_input"][2:], device),
+                        r["ic"].mean_shift_max_iterations)
+            for v, r in variants.items() if r["fit_input"] is not None and v != "meanshift"}
+        wide_launches = phase_wide_main(work)
         k2_bf16, k2_f32 = phase_train(work, k2[torch.bfloat16]["ms"])
         phase_learn(work)
         phase_3d_checks(device)
         container_3d, checkpoint_3d = phase_train_3d(work)
         infer_3d_launches, k3_fit_3d = phase_main_3d(work, container_3d, checkpoint_3d)
+        phase_3d_greedy(work, container_3d, checkpoint_3d)
     k1_launches = {torch.float32: infer_launches["float32"]["conv_pass_2d"],
                    torch.bfloat16: infer_launches["bfloat16"]["conv_pass_2d"]}
     k2_launches = {torch.bfloat16: k2_bf16, torch.float32: k2_f32}
@@ -1283,6 +1586,14 @@ def main() -> None:
                      "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_pass.cu",
                      "replaces": "cellulus_tpu/ops/pallas_conv.py:55",
                      "launches": k1_launches[dtype], **k1[dtype]})
+    for dtype in (torch.float32, torch.bfloat16):
+        # the 256-fmap model: [wide-main] runs it in bfloat16 only
+        rows.append({"name": "conv_pass_2d", "dtype": str(dtype).removeprefix("torch."),
+                     "model": "examples/real-data (256 fmaps)", "route": "cuda",
+                     "source": "cellulus_tpu_torch/csrc/conv_pass.cu",
+                     "replaces": "cellulus_tpu/ops/pallas_conv.py:55",
+                     "launches": wide_launches["conv_pass_2d"] if dtype == torch.bfloat16 else 0,
+                     **k1_wide[dtype]})
     for dtype in (torch.bfloat16, torch.float32):
         rows.append({"name": "conv3x3_dw", "dtype": str(dtype).removeprefix("torch."),
                      "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_dw.cu",
@@ -1298,6 +1609,12 @@ def main() -> None:
                      "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
                      "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",
                      "launches": launches["float32"]["mean_shift_fit"], **fit})
+    for variant, fit in variant_fits.items():
+        fit.pop("out")
+        rows.append({"name": "mean_shift_fit", "d": 2, "path": variant, "route": "cuda",
+                     "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
+                     "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",
+                     "launches": variants[variant]["launches"], **fit})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,8 @@
     python3 scripts/torch_kernel_check.py k1       # or k2
     python3 scripts/torch_kernel_check.py fit      # K3 and the one-launch fit
     python3 scripts/torch_kernel_check.py tiles    # K1 at every tile that fits
+    python3 scripts/torch_kernel_check.py wide     # K1 at the 256-fmap model's passes
+    python3 scripts/torch_kernel_check.py greedy   # greedy clustering, card vs CPU
 
 ``k1`` and ``k2`` are ``chip_smoke.py``'s ``[K1]`` and ``[K2]`` phases (each
 kernel against its plain version at the full-width shapes, timed beside its
@@ -12,7 +14,11 @@ plain version, cuDNN and its bound); ``fit`` is its ``[K3]`` and ``[K3-fit]``
 phases (without the main path's input). ``tiles`` launches K1 through its C
 entry point at every square tile that fits shared memory, with the cost its
 tile choice assigns, to see how the tile size sets its speed; every tile must
-give the bits of the tile the wrapper picks. Exits non-zero on a failure.
+give the bits of the tile the wrapper picks. ``wide`` is ``[K1-wide]``:
+the plan mirrors against the library and K1 at the passes of
+``examples/real-data``'s model. ``greedy`` clusters synthetic blob
+embeddings (512^2 and 128^3) on the card, timed, against the CPU.
+Exits non-zero on a failure.
 """
 
 from __future__ import annotations
@@ -63,6 +69,51 @@ def sweep_tiles(device):
                     smoke.fail(f"conv_pass_2d {name} {dtype}: tile {tile} changes the output")
 
 
+def greedy_check(device):
+    import time
+
+    import numpy as np
+
+    from cellulus_tpu_torch.ops import greedy_cluster as gc
+    from cellulus_tpu_torch.ops.greedy_cluster import greedy_cluster
+
+    for ndim, size, bw in ((2, 512, 20.0), (3, 128, 6.0)):
+        _, labels = smoke.make_blobs(1, size, 21, ndim=ndim, num_blobs=40 if ndim == 2 else 60,
+                                     radius=(0.02, 0.04) if ndim == 2 else (0.04, 0.08))
+        labels = labels[0, 0]
+        rng = np.random.default_rng(ndim)
+        grid = np.stack(np.meshgrid(*[np.arange(size)] * ndim, indexing="ij"))
+        emb = np.zeros((ndim + 1, *labels.shape), np.float32)
+        for i in np.unique(labels[labels > 0]):
+            m = labels == i
+            for axis in range(ndim):
+                emb[ndim - 1 - axis][m] = grid[axis][m].mean() - grid[axis][m] + rng.normal(
+                    0, 0.5, m.sum())
+        emb[ndim] = np.where(labels > 0, rng.uniform(0, 0.1, labels.shape),
+                             rng.uniform(0.4, 1.0, labels.shape))
+        fg = emb[ndim] < 0.3
+        cpu = greedy_cluster(emb, fg, bw, 10, device="cpu")
+        # the default batch, and batches of 8 iterations (more graph replays)
+        for per_batch in (gc.ITERATIONS_PER_BATCH, 8):
+            default, gc.ITERATIONS_PER_BATCH = gc.ITERATIONS_PER_BATCH, per_batch
+            try:
+                for _ in range(2):
+                    stats = {}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    card = greedy_cluster(emb, fg, bw, 10, device=device, stats=stats)
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+            finally:
+                gc.ITERATIONS_PER_BATCH = default
+            same = np.array_equal(card, cpu)
+            print(f"[greedy] {size}^{ndim}, {per_batch} iterations a batch: {seconds:.3f} s on "
+                  f"the card, {stats['iterations']} iterations, {stats['host_syncs']} host "
+                  f"syncs, {stats['instances']} instances; card equals CPU: {same}", flush=True)
+            if not same:
+                smoke.fail("greedy: the card's instance map differs from the CPU's")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_check: CUDA is not available")
@@ -81,6 +132,11 @@ def main() -> None:
         smoke.phase_fit(device)
     if what == "tiles":
         sweep_tiles(device)
+    if what == "wide":
+        smoke.phase_k1_plans()
+        smoke.phase_conv_pass(device, smoke.MODEL_WIDE, smoke.K1_WIDE_BATCH, "K1-wide")
+    if what == "greedy":
+        greedy_check(device)
 
 
 if __name__ == "__main__":

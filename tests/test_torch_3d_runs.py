@@ -204,10 +204,9 @@ def _edit(text, *pairs):
 
 def test_cli_runs_the_examples_3d_tomls(blob_container_3d, tmp_path):
     """``python -m cellulus_tpu_torch train examples/3d/train.toml`` and
-    ``infer`` on a copy of ``examples/3d/infer.toml`` without its
-    ``clustering`` line and with a ``.pth`` checkpoint, on the CPU at a
-    small crop, one step and one TTA iteration (the model as the TOMLs set
-    it)."""
+    ``infer`` on a copy of ``examples/3d/infer.toml`` (greedy clustering
+    as it sets it) with a ``.pth`` checkpoint, on the CPU at a small crop,
+    one step and one TTA iteration (the model as the TOMLs set it)."""
     import shutil
     import subprocess
     import sys
@@ -219,10 +218,10 @@ def test_cli_runs_the_examples_3d_tomls(blob_container_3d, tmp_path):
                   ("crop_size = [40, 76, 76]", "crop_size = [28, 36, 36]"),
                   ("max_iterations = 5000", 'max_iterations = 1\ndevice = "cpu"'))
     infer = _edit((repo / "examples" / "3d" / "infer.toml").read_text(),
-                  ('clustering = "greedy"\n', ""),
                   ('checkpoint = "models/best_loss.ckpt"', 'checkpoint = "models/000000.pth"'),
                   ("crop_size = [40, 76, 76]",
                    'crop_size = [28, 36, 36]\nnum_infer_iterations = 1\ndevice = "cpu"'))
+    assert 'clustering = "greedy"' in infer
     (tmp_path / "train.toml").write_text(train)
     (tmp_path / "infer.toml").write_text(infer)
     gt = zarr.open(tmp_path / "data_3d.zarr", "r")["groundtruth"]

@@ -97,3 +97,66 @@ def test_pass_rejects_what_the_kernel_does_not_take(small_params, bad):
         x = torch.zeros((1, 12, 12, 1), device="meta")
     with pytest.raises(ValueError):
         conv_pass_2d(x, pp, dtype)
+
+
+# The route and tile of every pass at the widths of the repo's 2D TOMLs
+# (computed from the source's size and cost formulas; chip_smoke.py holds
+# those mirrors against the library on the card). examples/2d keeps the
+# tiles it took before the staged route existed.
+_EXAMPLE_PLANS = {
+    "2d": {
+        "down": {"float32": ("fused", 16), "bfloat16": ("fused", 14)},
+        "bottom": {"float32": ("fused", 8), "bfloat16": ("fused", 12)},
+        "up": {"float32": ("fused", 14), "bfloat16": ("fused", 14)},
+    },
+    "real-data": {
+        "down": {"float32": ("fused", 6), "bfloat16": ("fused", 8)},
+        "bottom": {"float32": ("staged", 16), "bfloat16": ("staged", 16)},
+        "up": {"float32": ("fused", 14), "bfloat16": ("fused", 14)},
+    },
+}
+
+
+@pytest.mark.parametrize("toml", ["2d/infer.toml", "2d/train.toml", "real-data/infer.toml",
+                                  "real-data/train.toml"])
+def test_plan_of_every_pass_of_the_example_widths(toml):
+    from pathlib import Path
+
+    from cellulus_tpu_torch.configs import ExperimentConfig
+    from cellulus_tpu_torch.models.geometry import conv_pass_inputs
+    from cellulus_tpu_torch.ops.conv_pass import (
+        MAX_SHARED_BYTES,
+        conv_pass_2d_plan,
+        fused_smem_bytes,
+        staged_smem_bytes,
+    )
+
+    config = ExperimentConfig.from_toml(Path(__file__).resolve().parents[1] / "examples" / toml)
+    mc = config.model_config
+    stage = config.inference_config if "infer" in toml else config.train_config
+    passes = conv_pass_inputs(stage.crop_size, mc.downsampling_factors, 1, mc.num_fmaps,
+                              mc.fmap_inc_factor, mc.features_in_last_layer)
+    expected = _EXAMPLE_PLANS[toml.split("/")[0]]
+    assert [p[0] for p in passes] == list(expected)
+    for name, size, c_in, c_out in passes:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = conv_pass_2d_plan((128, *size, c_in), c_out, dtype)
+            assert plan == expected[name][str(dtype)[6:]], (name, dtype)
+            route, tile = plan
+            elem = 2 if dtype == torch.bfloat16 else 4
+            if route == "fused":
+                assert fused_smem_bytes(c_in, c_out, tile, tile, elem) <= MAX_SHARED_BYTES
+            else:  # staged only where no fused tile fits
+                assert fused_smem_bytes(c_in, c_out, 1, 1, elem) > MAX_SHARED_BYTES
+                assert max(staged_smem_bytes(k, ci, tile, tile, elem)
+                           for k, ci in ((3, c_in), (1, c_out), (3, c_out))) <= MAX_SHARED_BYTES
+
+
+def test_a_pass_no_route_takes_raises():
+    """Channels that neither fit a fused tile nor stream in the staged
+    route's slices raise; the pass is never handed to a library."""
+    from cellulus_tpu_torch.ops.conv_pass import conv_pass_2d_plan
+
+    with pytest.raises(ValueError, match="fits no fused tile"):
+        conv_pass_2d_plan((1, 64, 64, 256), 776, torch.bfloat16)
+    assert conv_pass_2d_plan((1, 64, 64, 256), 784, torch.bfloat16) == ("staged", 16)
