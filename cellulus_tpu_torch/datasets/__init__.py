@@ -25,7 +25,9 @@ def get_dataset(
     output_shape: Optional[Tuple[int, ...]] = None,
     seed: int = 0,
     sample_pairs: bool = True,
+    normalize: bool = True,
     pair_count_mode: str = "reference",
+    elastic_device: bool = False,
 ) -> ZarrDataset:
     """Reference-parity factory (reference ``datasets/__init__.py:8-27``)."""
     return ZarrDataset(
@@ -40,7 +42,9 @@ def get_dataset(
         output_shape=output_shape,
         seed=seed,
         sample_pairs=sample_pairs,
+        normalize=normalize,
         pair_count_mode=pair_count_mode,
+        elastic_device=elastic_device,
     )
 
 

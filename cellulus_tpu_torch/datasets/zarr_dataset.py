@@ -64,11 +64,16 @@ class ZarrDataset:
         output_shape: Optional[Tuple[int, ...]] = None,
         seed: int = 0,
         sample_pairs: bool = True,
+        normalize: bool = True,
         pair_count_mode: str = "reference",
+        elastic_device: bool = False,
     ):
         self.dataset_config = dataset_config
         self.crop_size = tuple(int(c) for c in crop_size)
-        self.elastic = elastic_deform
+        # elastic_device: the dataset reads PADDED crops and the train step
+        # performs the warp (datasets/elastic_device.py)
+        self.elastic_device = elastic_device and elastic_deform
+        self.elastic = elastic_deform and not elastic_device
         self.control_point_spacing = control_point_spacing
         self.control_point_jitter = control_point_jitter
 
@@ -103,9 +108,19 @@ class ZarrDataset:
         )
         self.seed = seed
         self.sample_pairs = sample_pairs
+        # normalize=False ships crops in the source dtype; the train step
+        # applies normalization_factor on the device (transfer_precision="native")
+        self.normalize = normalize
+        if not normalize and self.elastic:
+            raise ValueError(
+                "normalize=False (native transfer) requires host elastic "
+                "off: deformation interpolates to float on the host. Use "
+                "elastic_on_device=true to combine augmentation with native "
+                "transfer."
+            )
         self._margin = (
             required_margin(self.crop_size, control_point_jitter)
-            if self.elastic
+            if (self.elastic or self.elastic_device)
             else 0
         )
 
@@ -115,7 +130,8 @@ class ZarrDataset:
         self, sample: int, origin: Tuple[int, ...], size: Tuple[int, ...]
     ) -> np.ndarray:
         """Read ``(C, *size)`` starting at ``origin`` (spatial), reflecting
-        at the dataset boundary where the region sticks out."""
+        at the dataset boundary where the region sticks out: float32, or the
+        source dtype when the step normalizes (``normalize=False``)."""
         from ..io.regions import read_reflect_region
 
         return read_reflect_region(
@@ -125,6 +141,7 @@ class ZarrDataset:
             self.meta.spatial_array,
             origin,
             size,
+            dtype=np.float32 if self.normalize else self.array.dtype,
         )
 
     def _sample_crop(self, rng: np.random.Generator) -> np.ndarray:
@@ -134,7 +151,15 @@ class ZarrDataset:
             int(rng.integers(0, max(1, sp - c + 1)))
             for sp, c in zip(spatial, self.crop_size)
         )
-        if not self.elastic:
+        if self.elastic_device:
+            # padded read; the train step warps it back down to crop_size
+            m = self._margin
+            crop = self._read_region(
+                sample,
+                tuple(o - m for o in origin),
+                tuple(c + 2 * m for c in self.crop_size),
+            )
+        elif not self.elastic:
             crop = self._read_region(sample, origin, self.crop_size)
         else:
             m = self._margin
@@ -150,6 +175,8 @@ class ZarrDataset:
                 self.control_point_jitter,
                 rng,
             )
+        if not self.normalize:
+            return crop
         return crop * self.normalization_factor
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
@@ -199,6 +226,19 @@ class ConcatDataset:
         self.sampler = first.sampler
         self.sample_pairs = first.sample_pairs
         self.meta = first.meta
+
+    @property
+    def normalization_factor(self):
+        """Shared scale for transfer_precision="native" (normalization then
+        happens on the device with ONE scalar, so the members must agree)."""
+        factors = {ds.normalization_factor for ds in self.datasets}
+        if len(factors) > 1:
+            raise ValueError(
+                "transfer_precision='native' needs every train dataset to "
+                f"share one normalization factor, got {sorted(factors)}; "
+                "use float32 transfer or normalize the containers alike"
+            )
+        return next(iter(factors))
 
     def iterate(self, seed: int):
         rng = np.random.default_rng(seed)

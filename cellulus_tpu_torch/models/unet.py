@@ -22,6 +22,9 @@ takes one of two paths, which compute the same function:
   adds the bias before its one rounding, so they differ by bf16 roundings
   carried through the network.
 
+With ``remat`` set, each conv pass of the training path runs under
+``torch.utils.checkpoint``: the backward recomputes its activations.
+
 In 3D there is one path for both, as in the JAX package, which sends no 3D
 conv to a Pallas kernel: each conv is ``F.conv3d`` (cuDNN on the card, its
 own gradients) in the compute dtype, then ``+ b`` in the compute dtype,
@@ -42,6 +45,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.conv_pass import conv_pass_2d
 from ..ops.conv_vjp import conv3x3_valid
@@ -184,6 +188,19 @@ def _conv1x1(x: torch.Tensor, conv: nn.Module, compute_dtype) -> torch.Tensor:
     return y + conv.bias.to(compute_dtype)
 
 
+def _run(conv_pass: ConvPass, x, compute_dtype, fused: bool):
+    return conv_pass(x, compute_dtype, fused)
+
+
+def _remat(conv_pass: ConvPass, x, compute_dtype, fused: bool):
+    """The pass under ``torch.utils.checkpoint`` (non-reentrant): only its
+    input is kept, and the backward runs the pass again, 2D filter
+    gradients through K2 as before (``cellulus_tpu/models/unet.py:315-316``,
+    ``jax.checkpoint`` per pass)."""
+    return torch.utils.checkpoint.checkpoint(conv_pass, x, compute_dtype, fused,
+                                             use_reentrant=False)
+
+
 class UNet(nn.Module):
     """U-Net + head: ``(B, *spatial, C_in) -> (B, *spatial_out, D)`` float32
     offsets, channel 0 = x (column) offset; 2 or 3 spatial dims."""
@@ -218,6 +235,9 @@ class UNet(nn.Module):
         fil = features_in_last_layer
         conv = _CONV[num_spatial_dims]
         self.head = nn.Sequential(conv(fil, fil, 1), nn.ReLU(), conv(fil, out_channels, 1))
+        # recompute each conv pass's activations in the backward (training
+        # path only): train_config.remat
+        self.remat = False
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
         if x.dim() != self.num_spatial_dims + 2:
@@ -230,12 +250,13 @@ class UNet(nn.Module):
             x.requires_grad or any(p.requires_grad for p in self.parameters())
         )
         bb = self.backbone
+        run = _remat if self.remat and not fused else _run
         skips = []
         for level in range(self.num_levels - 1):
-            x = bb.l_conv[level](x, compute_dtype, fused)
+            x = run(bb.l_conv[level], x, compute_dtype, fused)
             skips.append(x)
             x = _max_pool(x, self.downsampling_factors[level])
-        x = bb.l_conv[self.num_levels - 1](x, compute_dtype, fused)
+        x = run(bb.l_conv[self.num_levels - 1], x, compute_dtype, fused)
         for level in reversed(range(self.num_levels - 1)):
             if self.constant_upsample:
                 x = _upsample_nearest(x, self.downsampling_factors[level])
@@ -243,7 +264,7 @@ class UNet(nn.Module):
                 x = bb.r_up[0][level](x, compute_dtype)
             skip = _center_crop(skips[level], x.shape[1:-1])
             x = torch.cat([skip, x], dim=-1)
-            x = bb.r_conv[0][level](x, compute_dtype, fused)
+            x = run(bb.r_conv[0][level], x, compute_dtype, fused)
         x = torch.relu(_conv1x1(x, self.head[0], compute_dtype))
         return _conv1x1(x, self.head[2], compute_dtype).float()
 

@@ -1,11 +1,17 @@
-"""Segment stage, "cell" mode: detections -> post-processed instances.
+"""Segment stage: detections -> post-processed instances.
 
-Port of ``cellulus_tpu/segment.py`` (``cell_segment_sample``, ``segment``):
-halo removal (grow by ``grow_distance``, then shrink by
-``shrink_distance``) as disk convolutions on the device, then connected
-components (full connectivity: 8 in 2D, 26 in 3D), the ``min_size``
-filter and a consecutive relabel on the host.
-With ``min_size == 0`` the halo-removed detections are kept as they are,
+Port of ``cellulus_tpu/segment.py`` (``cell_segment_sample``,
+``nucleus_partition``, ``segment``), 2D and 3D. Two post-processing modes:
+
+- "cell": halo removal (grow by ``grow_distance``, then shrink by
+  ``shrink_distance``) as disk convolutions on the device;
+- "nucleus": per instance, inside its bounding box, an Otsu threshold of
+  the raw image's values under the instance and hole filling, on the host
+  (the JAX package's host path).
+
+Both end with connected components (full connectivity: 8 in 2D, 26 in 3D),
+the ``min_size`` filter and a consecutive relabel on the host. With
+``min_size == 0`` the post-processed detections are kept as they are,
 without relabelling, as in the reference.
 """
 
@@ -13,12 +19,29 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from scipy.ndimage import binary_fill_holes, find_objects
 
 from .configs import InferenceConfig
 from .io import DatasetMetaData, zarr
 from .io.meta_data import spatial_attrs
 from .ops.components import filter_relabel
 from .ops.morphology import halo_removal
+from .ops.otsu import threshold_otsu
+from .utils.env import resolve_flag
+
+
+def want_device_nucleus(inference_config: InferenceConfig) -> bool:
+    """The ``device_nucleus`` config field when set, else the
+    ``CELLULUS_TPU_DEVICE_NUCLEUS`` env var (``cellulus_tpu/segment.py:29-40``)."""
+    return resolve_flag(inference_config.device_nucleus, "CELLULUS_TPU_DEVICE_NUCLEUS")
+
+
+def _size_filter(segmentation: np.ndarray, min_size: int) -> np.ndarray:
+    """Components below ``min_size`` dropped and the rest relabelled; with
+    ``min_size == 0`` the labels are kept as they are."""
+    if min_size == 0:
+        return segmentation
+    return filter_relabel(segmentation, int(min_size))
 
 
 def cell_segment_sample(
@@ -38,16 +61,45 @@ def cell_segment_sample(
             )
     seg = torch.from_numpy(np.ascontiguousarray(segmentation, dtype=np.int32)).to(device)
     seg = halo_removal(seg, float(grow_distance), float(shrink_distance)).cpu().numpy()
-    if min_size == 0:
-        return seg.astype(segmentation.dtype)
-    return filter_relabel(seg, int(min_size)).astype(segmentation.dtype)
+    return _size_filter(seg, min_size).astype(segmentation.dtype)
+
+
+def nucleus_partition(segmentation: np.ndarray, raw_image: np.ndarray) -> np.ndarray:
+    """Per-instance intensity Otsu + hole filling ("nucleus" mode,
+    reference ``segment.py:52-101``), a copy of
+    ``cellulus_tpu/segment.py:nucleus_partition``.
+
+    Each instance's work stays inside its bounding box (``find_objects``):
+    the raw values under the instance are thresholded with Otsu (the whole
+    instance is kept where they are constant), the mask is hole-filled and
+    written with the instance's id.
+    """
+    out = np.zeros_like(segmentation)
+    seg_int = segmentation.astype(np.int64, copy=False)
+    for idx, bbox in enumerate(find_objects(seg_int)):
+        if bbox is None:
+            continue
+        id_ = idx + 1
+        sub_seg = seg_int[bbox]
+        sub_raw = raw_image[bbox]
+        id_mask = sub_seg == id_
+        values = sub_raw[id_mask]
+        if values.max() == values.min():
+            mask = id_mask
+        else:
+            mask = id_mask & (sub_raw > threshold_otsu(values))
+        out[bbox][binary_fill_holes(mask)] = id_
+    return out
 
 
 def segment(inference_config: InferenceConfig, device) -> None:
     ic = inference_config
-    if ic.post_processing != "cell":
+    nucleus = ic.post_processing == "nucleus"
+    if nucleus and want_device_nucleus(ic):
         raise NotImplementedError(
-            "post_processing='nucleus' is not ported yet (ROADMAP: M11, nucleus mode)"
+            "device_nucleus is not ported yet (ROADMAP: M11.2, device nucleus "
+            "with device connected components); the host nucleus path runs "
+            "with device_nucleus=false"
         )
     meta = DatasetMetaData.from_dataset_config(ic.dataset_config)
     f = zarr.open(ic.segmentation_dataset_config.container_path, "a")
@@ -58,12 +110,19 @@ def segment(inference_config: InferenceConfig, device) -> None:
         dtype=np.uint16,
     )
     ds_out.attrs.update(spatial_attrs(meta))
+    if nucleus:
+        # the raw image lives in its own container: the reference reads it
+        # from the segmentation container (reference segment.py:53), which
+        # works only when the two are one (cellulus_tpu/segment.py:222-230)
+        ds_raw = zarr.open(ic.dataset_config.container_path, "r")[
+            ic.dataset_config.dataset_name]
     for sample in range(meta.num_samples):
+        raw_image = np.asarray(ds_raw[sample, 0]) if nucleus else None
         for k in range(ic.num_bandwidths):
-            ds_out[sample, k] = cell_segment_sample(
-                np.asarray(ds_in[sample, k]),
-                ic.grow_distance,
-                ic.shrink_distance,
-                ic.min_size,
-                device,
-            ).astype(np.uint16)
+            detections = np.asarray(ds_in[sample, k])
+            if nucleus:
+                seg = _size_filter(nucleus_partition(detections, raw_image), ic.min_size)
+            else:
+                seg = cell_segment_sample(detections, ic.grow_distance, ic.shrink_distance,
+                                          ic.min_size, device)
+            ds_out[sample, k] = seg.astype(np.uint16)

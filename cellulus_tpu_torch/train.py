@@ -4,12 +4,16 @@ Port of ``cellulus_tpu/train.py`` on one device with
 ``steps_per_dispatch=1`` (``train.py:646-1253``), 2D and 3D. Each step runs
 the U-Net's training path (in 2D every 3x3 filter gradient through kernel
 K2 on the card; in 3D library convolutions, as in the JAX package),
-gathers the anchor and reference embeddings, takes the OCE loss, and
-updates with Adam whose L2 decay enters the gradient before the moments.
-Host work (crops, elastic warp, pair sampling with device sampling off)
-overlaps the device through the threaded batch loader, and the loss is
-fetched one step late so the host does not wait for the step in flight.
-Checkpoints are reference-format ``.pth`` files that ``infer`` reads.
+takes the OCE loss of the configured ``loss_mode`` ("pairs" with host or
+device pairs, "grid", "dense"), and updates with Adam whose L2 decay
+enters the gradient before the moments. Key-driven steps (device pairs,
+grid, dense) draw from a ``torch.Generator`` seeded by (seed + 17,
+iteration); ``elastic_on_device`` puts the warp in front of them, and
+``transfer_precision="native"`` normalizes crops on the device. Host work
+(crops, host elastic warp, host pairs) overlaps the device through the
+threaded batch loader, and the loss is fetched one step late so the host
+does not wait for the step in flight. Checkpoints are reference-format
+``.pth`` files that ``infer`` reads.
 
 Options of the JAX package that are not on this path raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -30,6 +34,7 @@ import torch
 from .configs import ExperimentConfig
 from .criterions import oce_loss
 from .datasets import BatchLoader, ConcatDataset, get_dataset
+from .datasets.elastic_device import elastic_deform_batch
 from .io import zarr
 from .models import (
     compute_geometry,
@@ -125,13 +130,24 @@ def make_optimizer(
                           lr_decay_factor, grad_clip_norm, log_grad_norm)
 
 
+def _prep_raw(raw, input_scale, compute_dtype):
+    """Normalize on the device when ``transfer_precision="native"`` (crops
+    ship in source units): one scalar multiply in the compute dtype, which
+    in float32 gives the bits of the host's float32 normalization
+    (``cellulus_tpu/train.py:_prep_raw``)."""
+    if input_scale is None:
+        return raw
+    return raw.to(compute_dtype) * torch.tensor(input_scale, dtype=compute_dtype)
+
+
 def make_train_step(model, optimizer, temperature: float, regularizer_weight: float,
-                    compute_dtype=torch.float32):
+                    compute_dtype=torch.float32, input_scale=None):
     """Step with host pairs in the repeated-anchor layout: ``step(raw (B,
     *spatial, C), anchors (B, P, D), references (B, P, D)) -> (loss, oce,
     offsets)``, all detached; the parameters are updated in place."""
 
     def step(raw, anchors, references):
+        raw = _prep_raw(raw, input_scale, compute_dtype)
         optimizer.zero_grad()
         offsets = model(raw, compute_dtype)
         e_anchor = select_and_add_coordinates(offsets, anchors)
@@ -146,7 +162,7 @@ def make_train_step(model, optimizer, temperature: float, regularizer_weight: fl
 
 def make_train_step_fused(model, optimizer, temperature: float, regularizer_weight: float,
                           pair_sampler, batch_size: int, compute_dtype=torch.float32,
-                          device="cpu"):
+                          device="cpu", input_scale=None):
     """Step with pairs drawn on the device: ``step(raw, generator) -> (loss,
     oce, offsets)``. Each anchor embedding is gathered once and broadcast
     over its R references, which are gathered from the detached offsets
@@ -154,6 +170,7 @@ def make_train_step_fused(model, optimizer, temperature: float, regularizer_weig
     sample = pair_sampler.device_sampler_grouped(device)
 
     def step(raw, generator):
+        raw = _prep_raw(raw, input_scale, compute_dtype)
         anchors, references = sample(generator, batch_size)
         B, A, R, D = references.shape
         optimizer.zero_grad()
@@ -170,6 +187,173 @@ def make_train_step_fused(model, optimizer, temperature: float, regularizer_weig
         optimizer.step()
         return loss.detach(), oce.detach(), offsets.detach()
 
+    return step
+
+
+def _unbiased_region(pair_sampler):
+    """``(k, unbiased shape, its area)``: anchors lie in ``[k, out - k)``."""
+    k = int(pair_sampler.kappa)
+    unbiased = tuple(s - 2 * k for s in pair_sampler.output_shape)
+    return k, unbiased, float(np.prod(unbiased))
+
+
+def grid_layout(pair_sampler):
+    """``(stride, grid_dims, A, scale)`` of the grid loss
+    (``cellulus_tpu/train.py:362-368``): a stride that gives about the
+    sampler's anchor count over the unbiased region (Python's ``round``,
+    half to even), the grid's extent per spatial axis, its anchor count,
+    and the factor ``n_anchors / A`` that scales the loss to the reference's
+    pair count."""
+    _, unbiased, area = _unbiased_region(pair_sampler)
+    ndim = len(unbiased)
+    stride = max(1, int(round((area / max(pair_sampler.n_anchors, 1)) ** (1 / ndim))))
+    grid_dims = tuple(max(1, u // stride) for u in unbiased)
+    A = int(np.prod(grid_dims))
+    return stride, grid_dims, A, pair_sampler.n_anchors / A
+
+
+def grid_anchors(jitter: torch.Tensor, k: int, stride: int, grid_dims) -> torch.Tensor:
+    """``(A, D)`` x-first anchor coordinates of the grid: spatial axis ``d``
+    at ``k + jitter[d] + stride * i`` (``cellulus_tpu/train.py:373-383``)."""
+    ndim = len(grid_dims)
+    axis_coords = [k + jitter[d] + stride * torch.arange(g, device=jitter.device)
+                   for d, g in enumerate(grid_dims)]
+    mesh = torch.meshgrid(*axis_coords, indexing="ij")
+    # component c indexes spatial axis ndim - 1 - c
+    return torch.stack([mesh[ndim - 1 - c].reshape(-1) for c in range(ndim)], dim=-1)
+
+
+def grid_anchor_offsets(offsets: torch.Tensor, jitter: torch.Tensor, k: int, stride: int,
+                        grid_dims) -> torch.Tensor:
+    """``(B, A, D)`` offsets at the grid's anchors, in :func:`grid_anchors`'
+    order: a fixed block ``[k, k + stride * g)`` per spatial axis viewed as
+    ``(g, stride)``, from which the jitter selects one phase. The jitter
+    stays a device tensor, so the read asks the host for nothing."""
+    batch, ndim = offsets.shape[0], len(grid_dims)
+    block = offsets[(slice(None),) + tuple(slice(k, k + stride * g) for g in grid_dims)]
+    block = block.reshape(batch, *[n for g in grid_dims for n in (g, stride)], offsets.shape[-1])
+    for d in reversed(range(ndim)):
+        block = block.index_select(2 + 2 * d, jitter[d : d + 1]).squeeze(2 + 2 * d)
+    return block.reshape(batch, -1, offsets.shape[-1])
+
+
+def make_train_step_grid(model, optimizer, temperature: float, regularizer_weight: float,
+                         pair_sampler, batch_size: int, compute_dtype=torch.float32,
+                         device="cpu", input_scale=None):
+    """Stratified-anchor step (``cellulus_tpu/train.py:make_train_step_grid``):
+    ``step(raw, generator, draws=None) -> (loss, oce, offsets)``.
+
+    Anchors sit on a grid of ``stride`` over the unbiased region, shifted by
+    one jitter per spatial axis shared by the batch; each anchor draws R iid
+    reference offsets from the sampler's disk table, gathered from the
+    detached offsets. The loss is the pair loss scaled by ``n_anchors / A``.
+    ``draws = (jitter (D,) per spatial axis, idx (B, A, R))`` replaces the
+    draws from ``generator`` (``draw(generator)``, the same order).
+
+    The anchor embeddings are a strided read of the offsets field
+    (:func:`grid_anchor_offsets`), not a gather.
+    """
+    stride, grid_dims, A, scale = grid_layout(pair_sampler)
+    k, _, _ = _unbiased_region(pair_sampler)
+    ndim = len(grid_dims)
+    R = pair_sampler.n_references
+    table = torch.from_numpy(pair_sampler._offsets).long().to(device)
+
+    def draw(generator):
+        jitter = torch.randint(0, stride, (ndim,), generator=generator, device=device)
+        idx = torch.randint(0, table.shape[0], (batch_size, A, R), generator=generator,
+                            device=device)
+        return jitter, idx
+
+    def step(raw, generator, draws=None):
+        jitter, idx = draw(generator) if draws is None else draws
+        raw = _prep_raw(raw, input_scale, compute_dtype)
+        anchors = grid_anchors(jitter, k, stride, grid_dims)
+        references = anchors[None, :, None, :] + table[idx]  # (B, A, R, D)
+
+        optimizer.zero_grad()
+        offsets = model(raw, compute_dtype)
+        e_anchor = grid_anchor_offsets(offsets, jitter, k, stride, grid_dims)
+        e_anchor = e_anchor + anchors.to(e_anchor.dtype)
+        e_reference = select_and_add_coordinates(
+            offsets.detach(), references.reshape(batch_size, A * R, ndim)
+        ).reshape(batch_size, A, R, ndim)
+        loss, oce, _ = oce_loss(
+            e_anchor[:, :, None, :].expand(batch_size, A, R, ndim), e_reference,
+            temperature, regularizer_weight,
+        )
+        loss = loss * scale
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), (oce * scale).detach(), offsets.detach()
+
+    step.draw = draw
+    return step
+
+
+def make_train_step_dense(model, optimizer, temperature: float, regularizer_weight: float,
+                          pair_sampler, batch_size: int, compute_dtype=torch.float32,
+                          device="cpu", input_scale=None):
+    """Gather-free step (``cellulus_tpu/train.py:make_train_step_dense``):
+    ``step(raw, generator, draws=None) -> (loss, oce, field)``.
+
+    For a reference offset ``o`` every pair ``(p, p + o)`` is a shift of the
+    embedding field, so each of R offsets shared by the step is a slice of
+    the detached field, and a Bernoulli mask of rate ``n_anchors / area``
+    over the unbiased region picks the anchors. The regularizer is
+    ``R * sum(mask * |e_anchor|)``, and loss and OCE term are scaled by
+    ``batch_size * n_anchors / sum(mask)``. ``draws = (offsets (R, D)
+    x-first, mask (B, *unbiased))`` replaces the draws from ``generator``
+    (``draw(generator)``: the offset indices, then the mask).
+
+    EXPERIMENTAL, as in the JAX package: the shared offsets make per-step
+    gradients about 10x noisier than the pair estimator, and training
+    stalls. The slices need the offsets on the host: one device sync a step.
+    """
+    k, unbiased, area = _unbiased_region(pair_sampler)
+    out = pair_sampler.output_shape
+    ndim = len(out)
+    anchor_rate = min(1.0, pair_sampler.n_anchors / area)
+    R = pair_sampler.n_references
+    table = torch.from_numpy(pair_sampler._offsets).long().to(device)
+    # absolute-coordinate grid, x-first channels, shaped (*out, D)
+    axes = [torch.arange(n, dtype=torch.float32, device=device) for n in out]
+    mesh = torch.meshgrid(*axes, indexing="ij")
+    coord_grid = torch.stack([mesh[ndim - 1 - c] for c in range(ndim)], dim=-1)
+    anchor_region = (slice(None),) + tuple(slice(k, k + u) for u in unbiased)
+
+    def draw(generator):
+        idx = torch.randint(0, table.shape[0], (R,), generator=generator, device=device)
+        mask = torch.bernoulli(
+            torch.full((batch_size, *unbiased), anchor_rate, device=device), generator=generator)
+        return table[idx], mask
+
+    def step(raw, generator, draws=None):
+        offs, mask = draw(generator) if draws is None else draws
+        raw = _prep_raw(raw, input_scale, compute_dtype)
+        n_anchor_samples = torch.clamp(mask.sum(), min=1.0)
+        optimizer.zero_grad()
+        field = model(raw, compute_dtype)
+        e = field + coord_grid
+        e_sg = e.detach()
+        e_anchor = e[anchor_region]
+        oce = torch.zeros((), dtype=torch.float32, device=e.device)
+        for o in offs.tolist():
+            # o is x-first: spatial axis d starts at k + o[ndim - 1 - d]
+            e_ref = e_sg[(slice(None),) + tuple(
+                slice(k + o[ndim - 1 - d], k + o[ndim - 1 - d] + unbiased[d])
+                for d in range(ndim))]
+            diff = e_anchor - e_ref
+            sq = (diff * diff).sum(dim=-1)
+            oce = oce + (mask * (1.0 - torch.exp(-sq / temperature))).sum()
+        reg = regularizer_weight * R * (mask * torch.linalg.vector_norm(e_anchor, dim=-1)).sum()
+        scale = (batch_size * pair_sampler.n_anchors) / n_anchor_samples
+        loss = (oce + reg) * scale
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), (oce * scale).detach(), field.detach()
+
+    step.draw = draw
     return step
 
 
@@ -268,25 +452,43 @@ def check_3d_density_envelope(
         )
 
 
-def _check_ported(train_config) -> None:
-    """Raise for the JAX package's options that are not ported yet."""
-    unported = [
-        (train_config.loss_mode != "pairs", f"loss_mode={train_config.loss_mode!r}"),
-        (train_config.steps_per_dispatch > 1, "steps_per_dispatch > 1"),
-        (train_config.elastic_on_device, "elastic_on_device"),
-        (train_config.transfer_precision == "native", "transfer_precision='native'"),
-        (train_config.remat, "remat"),
-        (train_config.packed_dw, "packed_dw"),
-    ]
-    for on, what in unported:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP: M9, train variants)"
-            )
+def _check_options(train_config) -> None:
+    """Raise for the JAX package's options that are not ported yet, and for
+    its two invalid combinations (``cellulus_tpu/train.py:683-705``); warn
+    that dense loss does not learn."""
+    if train_config.steps_per_dispatch > 1:
+        raise NotImplementedError(
+            "steps_per_dispatch > 1 is not ported yet (ROADMAP: M9.3, "
+            "CUDA graphs of K steps)"
+        )
     if (train_config.data_parallelism or 1) > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
             "data-parallel and multi-process training are not ported yet "
             "(ROADMAP: M13, multi-GPU)"
+        )
+    if train_config.loss_mode == "dense":
+        warnings.warn(
+            "loss_mode='dense' is EXPERIMENTAL and known NOT to learn "
+            "(shared reference offsets make per-step gradients ~10x noisier; "
+            "a 2000-iteration run failed to converge). Use loss_mode='grid' "
+            "or 'pairs'.",
+            stacklevel=3,
+        )
+        print("WARNING: loss_mode='dense' is experimental and does not reach "
+              "training quality; prefer 'grid' or 'pairs'.")
+    native = train_config.transfer_precision == "native"
+    if native and train_config.elastic_deform and not train_config.elastic_on_device:
+        raise ValueError(
+            "transfer_precision='native' requires host elastic off "
+            "(deformation interpolates crops to float on the host); set "
+            "elastic_on_device=true to combine them"
+        )
+    if (train_config.elastic_on_device and train_config.elastic_deform
+            and not (train_config.device_pair_sampling
+                     or train_config.loss_mode in ("grid", "dense"))):
+        raise ValueError(
+            "elastic_on_device needs a key-driven step: enable "
+            "device_pair_sampling or use loss_mode 'grid'/'dense'"
         )
 
 
@@ -298,7 +500,10 @@ def train(experiment_config: ExperimentConfig,
     print(experiment_config)
     train_config = experiment_config.train_config
     model_config = experiment_config.model_config
-    _check_ported(train_config)
+    _check_options(train_config)
+    native_transfer = train_config.transfer_precision == "native"
+    key_driven = train_config.device_pair_sampling or train_config.loss_mode != "pairs"
+    elastic_device = train_config.elastic_on_device and train_config.elastic_deform
     device = resolve_device(train_config.device)
     compute_dtype = compute_dtype_for(train_config.precision)
     if train_config.precision == "float32":
@@ -321,8 +526,11 @@ def train(experiment_config: ExperimentConfig,
             normalization_factor=experiment_config.normalization_factor,
             output_shape=geometry.output_size,
             seed=train_config.seed,
-            sample_pairs=not train_config.device_pair_sampling,
+            # host pairs feed only the host-sampled pair step
+            sample_pairs=not key_driven,
+            normalize=not native_transfer,
             pair_count_mode=train_config.pair_count_mode,
+            elastic_device=train_config.elastic_on_device,
         )
 
     if train_config.train_data_configs:
@@ -343,7 +551,9 @@ def train(experiment_config: ExperimentConfig,
         "kaiming_normal" if model_config.initialize else "torch_default",
         torch.Generator().manual_seed(train_config.seed),
     )
+    model.remat = train_config.remat
     model.to(device)
+    input_scale = dataset.normalization_factor if native_transfer else None
     optimizer = make_optimizer(
         model.parameters(),
         train_config.initial_learning_rate,
@@ -417,16 +627,25 @@ def train(experiment_config: ExperimentConfig,
                                         train_config.regularizer_weight)[0])
         return total / len(val_batches)
 
-    if train_config.device_pair_sampling:
-        step = make_train_step_fused(
-            model, optimizer, train_config.temperature, train_config.regularizer_weight,
-            dataset.sampler, train_config.batch_size, compute_dtype, device,
-        )
+    # pallas_dw and packed_dw name JAX formulations of the filter gradient;
+    # the port has one route for it (K2 in 2D, the library's in 3D)
+    loss_args = (model, optimizer, train_config.temperature, train_config.regularizer_weight)
+    if key_driven:
+        make = {"grid": make_train_step_grid, "dense": make_train_step_dense}.get(
+            train_config.loss_mode, make_train_step_fused)
+        step = make(*loss_args, dataset.sampler, train_config.batch_size, compute_dtype,
+                    device, input_scale=input_scale)
     else:
-        step = make_train_step(
-            model, optimizer, train_config.temperature, train_config.regularizer_weight,
-            compute_dtype,
-        )
+        step = make_train_step(*loss_args, compute_dtype, input_scale=input_scale)
+    if elastic_device:
+        # the warp runs in front of the key-driven step, drawing from its
+        # generator: the loader ships padded crops
+        deform = elastic_deform_batch(crop_size, train_config.control_point_spacing,
+                                      train_config.control_point_jitter)
+        inner_step = step
+
+        def step(raw, generator):
+            return inner_step(deform(raw, generator), generator)
 
     loader = BatchLoader(dataset, train_config.batch_size, num_workers=train_config.num_workers)
 
@@ -489,7 +708,10 @@ def train(experiment_config: ExperimentConfig,
             spatial_names = (
                 [n for n in meta.axis_names if n not in ("s", "c")] if meta is not None else None
             )
-            save_snapshot(raw_np, np.moveaxis(offsets.cpu().numpy(), -1, 1), iteration,
+            snap_raw = raw_np
+            if input_scale is not None:
+                snap_raw = raw_np.astype(np.float32) * input_scale
+            save_snapshot(snap_raw, np.moveaxis(offsets.cpu().numpy(), -1, 1), iteration,
                           axis_names=spatial_names)
 
     # graceful stop: touching `stop_file` (relative to the working directory)
@@ -519,7 +741,7 @@ def train(experiment_config: ExperimentConfig,
             batch = next(batches)
             raw_np = batch[0]
             raw = to_device(raw_np)
-            if train_config.device_pair_sampling:
+            if key_driven:
                 generator = seeded_generator(device, train_config.seed + 17, iteration)
                 loss, oce, offsets = step(raw, generator)
             else:
@@ -544,6 +766,12 @@ def train(experiment_config: ExperimentConfig,
             if is_cadence:
                 consume(pending)
                 pending = None
+                if elastic_device and iteration % train_config.save_snapshot_every == 0:
+                    # the step's offsets describe the warped crop: snapshot
+                    # the padded crop with its own forward
+                    with torch.no_grad():
+                        offsets = model(_prep_raw(raw, input_scale, compute_dtype),
+                                        compute_dtype)
                 cadence_actions(iteration, offsets, raw_np)
             if stop_requested():
                 if pending is not None:

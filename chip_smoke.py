@@ -52,6 +52,15 @@ Phases, each failing the run (non-zero exit) if it fails:
    K2 launched 6 times a step, a resume, 3 float32 steps, then infer on the
    trained checkpoint;
 10. learn: a small recipe trains 400 steps and must beat its step-0 F1;
+    ``[grid]``/``[dense]``: one step of each loss mode at the full width of
+    examples/2d, float32 and bfloat16, card against CPU on the same weights
+    and draws (loss, every gradient and parameter), then pairs, grid, dense
+    and pairs/grid with remat timed at batch 8 in bf16 with peak memory and
+    K2's launches; ``[learn-grid]``: the port's copy of
+    tests/test_quality_gate.py (grid loss, lr 1e-3, 400 steps), hard bar
+    F1 >= 0.9; ``[native]``: native transfer with the warp on the card at
+    examples/2d's width, and the normalized native crops against the
+    float32 path's;
 11. ``[3d-check]``: the full-width 3D U-Net of ``examples/3d``, and
     transposed-conv upsampling (``constant_upsample=False``) in 3D and 2D,
     on the card against the CPU: forward, and every training-path gradient;
@@ -70,9 +79,15 @@ Phases, each failing the run (non-zero exit) if it fails:
     on the bf16 3D embeddings through detect, segment and evaluate, greedy's
     iterations, host syncs and seconds a sample, and a 48^3 crop card
     against CPU;
-15. the kernels line (JSON, one row per kernel and input type; K1 at both
-    widths; the fit at d = 2 and d = 3 and on each new detect path), then
-    the last line ``{"ok": true, "device": {...}}``.
+15. ``[3d-elastic]``: tests/test_quality_3d_gate.py's bundle as written
+    (the warp on the card, device pairs, all_dims, 60 steps), its losses
+    and the pipeline on its checkpoint, and the warp for given parameters,
+    card against CPU; ``[hela]``: scripts/run_real_hela.py's recipe through
+    the port (scripts/torch_real_hela.py), nucleus and cell mode against
+    the vendored silver truth, nucleus F1 >= 0.8 and above cell mode's;
+16. the kernels line (JSON, one row per kernel and input type; K1 at both
+    widths; K2's launches by path; the fit at d = 2 and d = 3 and on each
+    new detect path), then the last line ``{"ok": true, "device": {...}}``.
 
 Needs CUDA: without it the script exits non-zero and prints no result.
 Imports nothing of JAX or of the JAX package.
@@ -89,13 +104,28 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
 import cellulus_tpu_torch
-from cellulus_tpu_torch.configs import ExperimentConfig
+from cellulus_tpu_torch.configs import DatasetConfig, ExperimentConfig
+from cellulus_tpu_torch.datasets import PairSampler, get_dataset
+from cellulus_tpu_torch.datasets.elastic import required_margin
+from cellulus_tpu_torch.datasets.elastic_device import (
+    deformation_grid,
+    draw_deformations,
+    map_coordinates_linear,
+)
 from cellulus_tpu_torch.io import zarr
+from cellulus_tpu_torch.train import (
+    _prep_raw,
+    make_optimizer,
+    make_train_step_dense,
+    make_train_step_fused,
+    make_train_step_grid,
+)
 from cellulus_tpu_torch.models import UNet, compute_geometry
 from cellulus_tpu_torch.models.geometry import conv_pass_inputs
 from cellulus_tpu_torch.detect import detect_sample, mean_center_embeddings, sample_rng
@@ -944,15 +974,19 @@ def train_config(container, model, object_size=OBJECT_SIZE, **train):
     })
 
 
-def _run_train(config, step_times=None):
+def _run_train(config, step_times=None, k1_launches=0):
     """``cellulus_tpu_torch.train`` with the K2 count set to 0 just before;
-    returns ``(state, K2 launches)``."""
+    returns ``(state, K2 launches)``. K1 (inference only) may launch just
+    ``k1_launches`` times: the no-grad snapshot forwards of a run that warps
+    on the card."""
     conv3x3_dw.launches = 0
     conv_pass_2d.launches = 0
     state = cellulus_tpu_torch.train(config, step_times)
-    torch.cuda.synchronize()
-    if conv_pass_2d.launches:
-        fail(f"the train step launched the inference-only K1 {conv_pass_2d.launches} times")
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    if conv_pass_2d.launches != k1_launches:
+        fail(f"the train loop launched the inference-only K1 {conv_pass_2d.launches} times, "
+             f"not {k1_launches}")
     losses = state["logger_data"]["loss"]
     if not losses or not np.isfinite(losses).all():
         fail(f"train losses {losses}")
@@ -1072,6 +1106,425 @@ def phase_learn(work):
           f"{windows.round(1).tolist()}; best_loss.pth (iteration {best_iteration}): "
           f"F1 {f1:.4f}, SEG {results['best_loss.pth']['SEG']:.4f}; step-0 checkpoint: "
           f"F1 {f1_start:.4f}, SEG {results['000000.pth']['SEG']:.4f}")
+
+
+# -- the training recipes of the JAX package's gates (loss modes, device elastic,
+# native transfer, remat, nucleus mode) -----------------------------------------
+
+LOSS_MODE_LR = 1e-3
+LOSS_MODE_STEPS = 12
+# tests/test_quality_gate.py's sizes, and the HeLa recipe's length
+GATE_SIZE, GATE_STEPS = 128, 400
+GATE_STEPS_3D = 60
+HELA_STEPS = 5000
+
+
+def _loss_mode_step(kind, net, dtype, device, batch, remat=False):
+    """A step of ``kind`` ("pairs" with device pairs, "grid", "dense") on
+    ``net`` at the 2D crop of examples/2d (kappa 10, density 0.1)."""
+    out = tuple(compute_geometry((CROP, CROP), MODEL["downsampling_factors"]).output_size)
+    sampler = PairSampler(out, density=0.1, kappa=10.0)
+    net.remat = remat
+    make = {"pairs": make_train_step_fused, "grid": make_train_step_grid,
+            "dense": make_train_step_dense}[kind]
+    return make(net, make_optimizer(net.parameters(), LOSS_MODE_LR), 10.0, 1e-5, sampler, batch,
+                dtype, device)
+
+
+def _grad_distances(a, b):
+    """Per tensor, the relative L2 distance of ``a``'s gradient from
+    ``b``'s; and the share of parameter entries more than 0.05 x lr apart."""
+    rel = {k: float((a[k][1] - g).norm()) / max(float(g.norm()), 1e-30)
+           for k, (_, g) in b.items()}
+    apart = sum(int(((a[k][0] - p).abs() > 0.05 * LOSS_MODE_LR).sum()) for k, (p, _) in b.items())
+    return rel, apart / sum(p.numel() for p, _ in b.values())
+
+
+def phase_loss_modes(device):
+    """``[grid]`` and ``[dense]``: one step of each loss mode at the full
+    width of examples/2d, float32 and bfloat16, from the same weights and the
+    same draws, on the card against the CPU (batch 2); then the step time
+    (median of LOSS_MODE_STEPS after 3 warm-up steps, the card synchronised
+    after each) and peak memory of pairs, grid, dense and each with remat,
+    at examples/2d/train.toml's batch 8 in bf16, K2 counted in each run.
+
+    The bars: loss and OCE term within rtol 1e-4 (float32) and 1e-2 (bf16).
+    Each tensor's gradient, as a relative L2 distance: the card's float32
+    within 3% of the distance between the CPU's bf16 and float32 gradients
+    (TF32's 2^-11 would sit near 1/8 of it; a first-layer filter gradient
+    sums 125k products whose sum cancels, so its float32 rounding shows at
+    a few 1e-3 there), the card's bf16
+    within twice that distance plus 1e-3 (the card's bf16 no farther from
+    the CPU's than bf16 lies from float32). A first Adam step moves each
+    entry by about lr times the sign of its gradient, so parameters land
+    apart only where a gradient's sign differs: at most 0.1% of the entries
+    in float32, 5% in bf16. A control shows that the float32 bar rejects a
+    lower precision: the card's float32 step with TF32 allowed in cuDNN and
+    matmul must fail it. Returns the K2 launches of each timed run and its
+    step times."""
+    raw = torch.rand((2, CROP, CROP, 1), generator=torch.Generator().manual_seed(21))
+    bars = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-2, 5e-2)}
+
+    def one_step(kind, net, dtype, dev, draws):
+        copy = random_unet(7, **MODEL).to(dev)
+        copy.load_state_dict(net.state_dict())
+        step = _loss_mode_step(kind, copy, dtype, dev, 2)
+        loss, oce, _ = step(raw.to(dev), None, draws=tuple(t.to(dev) for t in draws))
+        return float(loss), float(oce), {
+            k: (p.detach().cpu(), p.grad.cpu()) for k, p in copy.named_parameters()}
+
+    def judge(dtype, got, want, floor):
+        """``(message or None, report)``: the card's step ``got`` against the
+        CPU's ``want`` under ``dtype``'s bars."""
+        loss_tol, moved_tol = bars[dtype]
+        (l_gpu, o_gpu, gpu), (l_cpu, o_cpu, cpu) = got, want
+        if not (abs(l_gpu - l_cpu) <= loss_tol * abs(l_cpu)
+                and abs(o_gpu - o_cpu) <= loss_tol * abs(o_cpu)):
+            return (f"loss {l_gpu} / OCE {o_gpu} on the card, {l_cpu} / {o_cpu} on the CPU "
+                    f"(rtol {loss_tol})"), ""
+        rel, apart = _grad_distances(gpu, cpu)
+        if dtype == torch.float32:
+            limit = {k: 0.03 * f for k, f in floor.items()}
+        else:
+            limit = {k: 2 * f + 1e-3 for k, f in floor.items()}
+        over = [k for k in rel if rel[k] > limit[k]]
+        worst = max(rel, key=lambda k: rel[k] / limit[k])
+        report = (f"loss {l_gpu:.6g} vs {l_cpu:.6g} (rtol {loss_tol}); gradients' relative L2 "
+                  f"distance, worst against its bar at {worst}: {rel[worst]:.3g} (bar "
+                  f"{limit[worst]:.3g}; CPU bf16 vs f32 {floor[worst]:.3g}), largest "
+                  f"{max(rel.values()):.3g}; {apart:.3%} of the parameters apart by more than "
+                  f"0.05 x lr (limit {moved_tol:.1%})")
+        if over or apart > moved_tol:
+            return f"gradients of {over} beyond their bar: {report}", report
+        return None, report
+
+    for kind in ("grid", "dense"):
+        net = random_unet(7, **MODEL)
+        states, seconds = {}, {}
+        draws = _loss_mode_step(kind, net, torch.float32, "cpu", 2).draw(
+            torch.Generator().manual_seed(22))
+        for dtype in (torch.float32, torch.bfloat16):
+            for dev in ("cpu", str(device)):
+                t0 = time.perf_counter()
+                states[dtype, dev] = one_step(kind, net, dtype, dev, draws)
+                seconds[dtype, dev] = time.perf_counter() - t0
+        floor, _ = _grad_distances(states[torch.bfloat16, "cpu"][2], states[torch.float32, "cpu"][2])
+        for dtype in (torch.float32, torch.bfloat16):
+            message, report = judge(dtype, states[dtype, str(device)], states[dtype, "cpu"], floor)
+            if message:
+                fail(f"[{kind}] {dtype} card vs CPU: {message}")
+            print(f"[{kind}] {str(dtype):14s} one step at full width, batch 2, card vs CPU: "
+                  f"{report}; CPU step {seconds[dtype, 'cpu']:.1f}s", flush=True)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = one_step(kind, net, torch.float32, str(device), draws)
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        message, report = judge(torch.float32, tf32, states[torch.float32, "cpu"], floor)
+        if message is None:
+            fail(f"[{kind}] the float32 bar passes the card's step with TF32 allowed: {report}")
+        print(f"[{kind}] control: float32 with TF32 allowed fails the float32 bar as it must: "
+              f"{report}", flush=True)
+
+    raw = torch.rand((TRAIN_BATCH, CROP, CROP, 1), generator=torch.Generator().manual_seed(23),
+                     device="cpu").to(device)
+    runs = {}
+    for name, kind, remat in (("pairs", "pairs", False), ("grid", "grid", False),
+                              ("dense", "dense", False), ("pairs+remat", "pairs", True),
+                              ("grid+remat", "grid", True)):
+        net = random_unet(7, **MODEL).to(device)
+        step = _loss_mode_step(kind, net, torch.bfloat16, device, TRAIN_BATCH, remat)
+        gen = torch.Generator(device=device).manual_seed(24)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        conv3x3_dw.launches = 0
+        times = []
+        for i in range(3 + LOSS_MODE_STEPS):
+            t0 = time.perf_counter()
+            loss = step(raw, gen)[0]
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        if not math.isfinite(float(loss)):
+            fail(f"[{name}] loss {float(loss)}")
+        launches = conv3x3_dw.launches
+        if launches != 6 * (3 + LOSS_MODE_STEPS):
+            fail(f"[{name}] conv3x3_dw launched {launches} times in {3 + LOSS_MODE_STEPS} steps")
+        runs[name] = {"ms": float(np.median(times[3:])), "peak_gib":
+                      torch.cuda.max_memory_allocated() / 2**30, "launches": launches}
+        del net, step
+    base = runs["pairs"]
+    print("[grid] bf16 steps at examples/2d/train.toml's width and batch "
+          f"({TRAIN_BATCH} x {CROP}^2), median of {LOSS_MODE_STEPS}: " + "; ".join(
+              f"{name} {r['ms']:.2f} ms ({r['ms'] / base['ms']:.2f}x pairs), peak "
+              f"{r['peak_gib']:.2f} GiB, K2 {r['launches']}" for name, r in runs.items()),
+          flush=True)
+    return runs
+
+
+def _gate_container(work, name, ndim=2, size=GATE_SIZE):
+    """The data of tests/test_quality_gate.py (2D) or test_quality_3d_gate.py
+    (3D): 12 disks or balls of radius 0.04-0.09 x size, uint8, seed 11."""
+    os.makedirs(work, exist_ok=True)
+    return write_blob_container(os.path.join(work, name), 2 if ndim == 2 else 1, size, seed=11,
+                                dtype=np.uint8, ndim=ndim, num_blobs=12, radius=(0.04, 0.09))
+
+
+GATE_MODEL = dict(num_fmaps=16, fmap_inc_factor=2, features_in_last_layer=24,
+                  downsampling_factors=[[2, 2]])
+
+
+def gate_recipe(container, seed=0, iters=GATE_STEPS):
+    """tests/test_quality_gate.py's experiment as a plain dict, for either
+    package's ``ExperimentConfig``: grid loss, lr 1e-3, ``iters`` steps,
+    every stage in ``container`` (which holds the ground truth). The one
+    copy of the recipe: ``[learn-grid]``, the port's CPU gate
+    (tests/test_torch_quality_gate.py) and tests/gate_seeds.py read it."""
+
+    def ds(name, secondary=None):
+        d = {"container_path": str(container), "dataset_name": name}
+        if secondary:
+            d["secondary_dataset_name"] = secondary
+        return d
+
+    return {
+        "object_size": int(GATE_SIZE * 0.13),
+        "model_config": dict(GATE_MODEL),
+        "train_config": {
+            "batch_size": 4, "kappa": 5.0, "loss_mode": "grid", "density": 0.2,
+            "crop_size": [76, 76], "max_iterations": iters, "initial_learning_rate": 1e-3,
+            "num_workers": 0, "elastic_deform": False, "save_model_every": iters - 1,
+            "save_snapshot_every": 10**9, "save_best_model_every": 50, "seed": seed,
+            "train_data_config": ds("raw"),
+        },
+        "inference_config": {
+            "crop_size": [76, 76], "tile_batch_size": 4,
+            "dataset_config": ds("raw"),
+            "prediction_dataset_config": ds("embeddings"),
+            "detection_dataset_config": ds("detection", "embeddings"),
+            "segmentation_dataset_config": ds("segmentation", "detection"),
+            "evaluation_dataset_config": ds("groundtruth", "segmentation"),
+        },
+    }
+
+
+def learn_grid(work, seed=0, device=None, iters=None):
+    """tests/test_quality_gate.py through the port at training seed
+    ``seed`` (:func:`gate_recipe`), then infer on best_loss.pth. Returns
+    ``(F1, SEG, best iteration, K2 launches, train seconds, 50-step mean
+    losses)``."""
+    cfg = gate_recipe(_gate_container(work, "data.zarr"), seed, iters or GATE_STEPS)
+    cfg["train_config"]["device"] = cfg["inference_config"]["device"] = device or DEVICE
+    config = ExperimentConfig(**cfg)
+    with contextlib.chdir(work), logged(os.path.join(work, "train.log")):
+        t0 = time.perf_counter()
+        state, launches = _run_train(config)
+        seconds = time.perf_counter() - t0
+        config.model_config.checkpoint = os.path.join("models", "best_loss.pth")
+        results = cellulus_tpu_torch.infer(config)
+        best = torch.load(os.path.join("models", "best_loss.pth"), weights_only=True)["iteration"]
+    f1 = max(r["F1"] for r in results.values())
+    seg = max(r["SEG"] for r in results.values())
+    windows = np.asarray(state["logger_data"]["loss"]).reshape(-1, 50).mean(axis=1)
+    return f1, seg, int(best), launches, seconds, windows
+
+
+def phase_learn_grid(work):
+    """``[learn-grid]``: the port's copy of tests/test_quality_gate.py on the
+    card (grid loss, lr 1e-3, 400 steps, infer on best_loss.pth) at the
+    gate's seed; hard bar F1 >= 0.9. Returns K2's launches."""
+    f1, seg, best, launches, seconds, windows = learn_grid(os.path.join(work, "learn_grid"))
+    if launches != 6 * GATE_STEPS:
+        fail(f"[learn-grid] conv3x3_dw launched {launches} times in {GATE_STEPS} steps")
+    if not f1 >= 0.9:
+        fail(f"[learn-grid] F1 {f1:.4f} < 0.9 (SEG {seg:.4f}, best_loss.pth from iteration "
+             f"{best}, 50-step mean losses {windows.round(1).tolist()})")
+    print(f"[learn-grid] tests/test_quality_gate.py's recipe (grid, lr 1e-3, {GATE_STEPS} "
+          f"steps, seed 0) in {seconds:.1f}s: F1 {f1:.4f} >= 0.9, SEG {seg:.4f}; best_loss.pth "
+          f"from iteration {best}; 50-step mean losses {windows.round(1).tolist()}; K2 "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def _warp_check(device):
+    """The warp for given parameters (rotation, scale, control points) on
+    the card against the CPU, 2D and 3D: grid within 1e-4 (coordinates
+    below 200; the two ``cos``/``sin`` and resize sums may round apart), and
+    the sampled crop within 1e-4 x max|input| (a grid coordinate 1e-4 apart
+    moves a linear sample by at most that times the local slope)."""
+    worst = {}
+    for ndim, crop in ((2, (252, 252)), (3, (24, 44, 44))):
+        margin = required_margin(crop, 2.0)
+        padded_shape = tuple(c + 2 * margin for c in crop)
+        gen = torch.Generator().manual_seed(25 + ndim)
+        padded = torch.rand((2, *padded_shape, 1), generator=gen)
+        params = draw_deformations(gen, 2, crop, 64, 2.0, "cpu")
+        grids, crops = {}, {}
+        for dev in ("cpu", device):
+            p = [t.to(dev) for t in params]
+            grids[dev] = deformation_grid(crop, padded_shape, *p).cpu()
+            crops[dev] = map_coordinates_linear(padded.to(dev), grids[dev].to(dev)).cpu()
+        grid_err = float((grids[device] - grids["cpu"]).abs().max())
+        crop_err = float((crops[device] - crops["cpu"]).abs().max())
+        if not (grid_err <= 1e-4 and crop_err <= 1e-4):
+            fail(f"[3d-elastic] {ndim}D warp card vs CPU: grid err {grid_err:.3g}, crop err "
+                 f"{crop_err:.3g} (limits 1e-4)")
+        worst[ndim] = (grid_err, crop_err)
+    return worst
+
+
+def phase_3d_elastic(work):
+    """``[3d-elastic]``: tests/test_quality_3d_gate.py's bundle as written
+    (on-device elastic, device pairs, all_dims, density 0.025, lr 4e-4, 60
+    steps, 12 fmaps) on the card: every loss finite and below 3 x the first,
+    then predict -> detect -> segment on best_loss.pth, embeddings finite
+    and instances found; and the warp itself, card against CPU."""
+    warp = _warp_check(DEVICE)
+    gate = os.path.join(work, "gate3d")
+    size, steps = 48, GATE_STEPS_3D
+    container = _gate_container(gate, "data.zarr", ndim=3, size=size)
+    model = dict(num_fmaps=12, fmap_inc_factor=2, features_in_last_layer=24,
+                 downsampling_factors=[[1, 2, 2]])
+    config = train_config(
+        container, model, batch_size=2, kappa=5.0, loss_mode="pairs",
+        pair_count_mode="all_dims", density=0.025, crop_size=[24, 44, 44],
+        max_iterations=steps, initial_learning_rate=4e-4, num_workers=0, elastic_deform=True,
+        elastic_on_device=True, device_pair_sampling=True, steps_per_dispatch=1,
+        save_model_every=steps - 1, save_snapshot_every=10**9, save_best_model_every=20)
+    config.object_size = int(size * 0.13)
+    # the 3D density envelope warns for the gate's recipe, as in the JAX
+    # package; the phase checks its outcome instead
+    with contextlib.chdir(gate), logged(os.path.join(gate, "train.log")), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        t0 = time.perf_counter()
+        state, _ = _run_train(config)
+        seconds = time.perf_counter() - t0
+        losses = np.asarray(state["logger_data"]["loss"])
+        if len(losses) != steps or not losses.max() < 3 * losses[0]:
+            fail(f"[3d-elastic] {len(losses)} losses, first {losses[0]:.4g}, max "
+                 f"{losses.max():.4g} (limit 3 x the first)")
+        ic = infer_config(container, os.path.join("models", "best_loss.pth"), model,
+                          device=DEVICE, crop_size=[24, 44, 44], tile_batch_size=4,
+                          num_infer_iterations=2, object_size=config.object_size)
+        ic.inference_config.evaluation_dataset_config = None
+        cellulus_tpu_torch.infer(ic)
+    f = zarr.open(container, "r")
+    emb, seg = f["embeddings"][...], f["segmentation"][...]
+    if emb.shape != (1, 4, size, size, size) or not np.isfinite(emb).all() or seg.max() < 1:
+        fail(f"[3d-elastic] embeddings {emb.shape} finite {np.isfinite(emb).all()}, "
+             f"instances {int(seg.max())}")
+    print(f"[3d-elastic] warp card vs CPU for given parameters: 2D (252^2, 2 crops) grid "
+          f"{warp[2][0]:.3g}, crop {warp[2][1]:.3g}; 3D (24x44x44) grid {warp[3][0]:.3g}, crop "
+          f"{warp[3][1]:.3g} (limits 1e-4)", flush=True)
+    print(f"[3d-elastic] tests/test_quality_3d_gate.py's bundle, {steps} steps in "
+          f"{seconds:.1f}s: losses first/max/last {losses[0]:.4g} / {losses.max():.4g} / "
+          f"{losses[-1]:.4g}, all finite, max < 3 x first; infer on best_loss.pth: embeddings "
+          f"{emb.shape} finite, {int(seg.max())} instances", flush=True)
+
+
+def phase_native(work):
+    """``[native]``: a 2D run at the full width of examples/2d with
+    ``transfer_precision="native"`` and ``elastic_on_device`` (grid loss,
+    bf16, batch 8); then its padded crops, which ship as uint16, warped on
+    the card and normalized by the step's multiply, against the float32
+    path's crops warped with the same parameters (float32, rtol 1e-6: four
+    non-negative products summed and a scale, in either order, round apart
+    by a few ulps); and the upload of a batch of padded crops in either
+    dtype, timed as the train loop does it."""
+    container = os.path.join(work, "data.zarr")  # uint16, written by [main]
+    steps = 10
+    with contextlib.chdir(work), logged(os.path.join(work, "native.log")):
+        config = train_config(container, MODEL, precision="bfloat16", max_iterations=steps,
+                              crop_size=[CROP, CROP], batch_size=TRAIN_BATCH, loss_mode="grid",
+                              elastic_deform=True, elastic_on_device=True,
+                              transfer_precision="native", save_best_model_every=10**6,
+                              save_model_every=10**6, save_snapshot_every=10**6)
+        step_times = []
+        # the snapshot at iteration 0 runs the padded crop through K1's 3 passes
+        state, launches = _run_train(config, step_times, k1_launches=3)
+    if launches != 6 * steps:
+        fail(f"[native] conv3x3_dw launched {launches} times in {steps} steps")
+    step_ms = 1e3 * float(np.median(np.diff(step_times[1:-1])))
+
+    kw = dict(crop_size=(CROP, CROP), elastic_deform=True, control_point_spacing=64,
+              control_point_jitter=2.0, density=0.1, kappa=10.0, normalization_factor=None,
+              seed=3, sample_pairs=False, elastic_device=True)
+    cfg = DatasetConfig(container_path=container, dataset_name="raw")
+    native = get_dataset(cfg, normalize=False, **kw)
+    plain = get_dataset(cfg, **kw)
+    n_it, p_it = native.iterate(5), plain.iterate(5)
+    batch_n = torch.from_numpy(np.stack([next(n_it)[0] for _ in range(4)])).movedim(1, -1)
+    batch_p = torch.from_numpy(np.stack([next(p_it)[0] for _ in range(4)])).movedim(1, -1)
+    if batch_n.dtype != torch.uint16 or batch_p.dtype != torch.float32:
+        fail(f"[native] crops ship as {batch_n.dtype}, the float32 path's as {batch_p.dtype}")
+
+    def upload_ms(batch):
+        """Median ms of the train loop's upload of one batch (channels-last
+        copy on the host, then to the card), over 20."""
+        times = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.from_numpy(np.ascontiguousarray(np.moveaxis(batch, 1, -1))).to(DEVICE)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(times[1:]))
+
+    full_n = np.stack([next(n_it)[0] for _ in range(TRAIN_BATCH)])
+    full_p = np.stack([next(p_it)[0] for _ in range(TRAIN_BATCH)])
+    upload = {"native": (full_n.nbytes, upload_ms(full_n)),
+              "float32": (full_p.nbytes, upload_ms(full_p))}
+    params = [t.to(DEVICE) for t in draw_deformations(
+        torch.Generator().manual_seed(26), 4, (CROP, CROP), 64, 2.0, "cpu")]
+    grid = deformation_grid((CROP, CROP), tuple(batch_n.shape[1:-1]), *params)
+    got = _prep_raw(map_coordinates_linear(batch_n.to(DEVICE), grid),
+                    native.normalization_factor, torch.float32)
+    want = map_coordinates_linear(batch_p.to(DEVICE), grid)
+    err = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+    if not err <= 1e-6:
+        fail(f"[native] normalized native crops vs the float32 path's: max rel err {err:.3g}")
+    print(f"[native] examples/2d width, native transfer + elastic on the card (grid, bf16, "
+          f"batch {TRAIN_BATCH}): {steps} steps, median step {step_ms:.1f} ms, losses first/last "
+          f"{state['logger_data']['loss'][0]:.1f} / {state['logger_data']['loss'][-1]:.1f}, K2 "
+          f"launches {launches}; 4 padded crops ({tuple(batch_n.shape[1:3])}, uint16 source "
+          f"units) warped on the card and normalized by the step's multiply vs the float32 "
+          f"path's warped crops: max rel err {err:.3g} (rtol 1e-6); upload of a batch of "
+          f"{TRAIN_BATCH} padded crops: " + ", ".join(
+              f"{k} {b / 2**20:.2f} MiB in {ms:.3f} ms" for k, (b, ms) in upload.items()),
+          flush=True)
+    return launches
+
+
+def _load_script(name):
+    path = os.path.join(REPO, "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_hela(work):
+    """``[hela]``: scripts/run_real_hela.py's recipe on the vendored panels
+    through the port (scripts/torch_real_hela.py): HELA_STEPS bf16 steps with
+    host elastic, infer on best_loss.pth in nucleus mode against the silver
+    truth, then cell mode on the same detections. At the full 5,000 steps
+    nucleus must beat cell mode on F1 and reach F1 >= 0.8."""
+    hela = _load_script("torch_real_hela")
+    with open(os.path.join(work, "hela.log"), "w") as log:
+        r = hela.run_hela(os.path.join(work, "hela"), HELA_STEPS, DEVICE, log=log)
+    nucleus, cell = r["nucleus"], r["cell"]
+    full = HELA_STEPS == 5000
+    if full and not (nucleus["F1"] > cell["F1"] and nucleus["F1"] >= 0.8):
+        fail(f"[hela] nucleus F1 {nucleus['F1']:.4f} (cell {cell['F1']:.4f}): the bar is "
+             "nucleus > cell and nucleus >= 0.8")
+    print(f"[hela] {'full recipe' if full else 'cut recipe (no F1 bar)'}: {HELA_STEPS} steps in "
+          f"{r['train_seconds']:.1f}s, best_loss.pth from iteration {r['best_iteration']}; "
+          f"nucleus F1 {nucleus['F1']:.4f} SEG {nucleus['SEG']:.4f} (bandwidth "
+          f"{nucleus['bandwidth']}), cell F1 {cell['F1']:.4f} SEG {cell['SEG']:.4f} (bandwidth "
+          f"{cell['bandwidth']}); per bandwidth (F1, SEG) nucleus "
+          f"{json.dumps(nucleus['per_bandwidth'])}, cell {json.dumps(cell['per_bandwidth'])}",
+          flush=True)
 
 
 def phase_wide_main(work):
@@ -1573,13 +2026,22 @@ def main() -> None:
         wide_launches = phase_wide_main(work)
         k2_bf16, k2_f32 = phase_train(work, k2[torch.bfloat16]["ms"])
         phase_learn(work)
+        loss_modes = phase_loss_modes(device)
+        k2_learn_grid = phase_learn_grid(work)
+        k2_native = phase_native(work)
         phase_3d_checks(device)
         container_3d, checkpoint_3d = phase_train_3d(work)
         infer_3d_launches, k3_fit_3d = phase_main_3d(work, container_3d, checkpoint_3d)
         phase_3d_greedy(work, container_3d, checkpoint_3d)
+        phase_3d_elastic(work)
+        phase_hela(work)
     k1_launches = {torch.float32: infer_launches["float32"]["conv_pass_2d"],
                    torch.bfloat16: infer_launches["bfloat16"]["conv_pass_2d"]}
-    k2_launches = {torch.bfloat16: k2_bf16, torch.float32: k2_f32}
+    # K2 launches of each path that ran it, by input type (the learn-grid
+    # gate trains in float32, the loss-mode runs and [native] in bf16)
+    k2_paths = {torch.bfloat16: {"train": k2_bf16, "native": k2_native,
+                                 **{name: r["launches"] for name, r in loss_modes.items()}},
+                torch.float32: {"train": k2_f32, "learn-grid": k2_learn_grid}}
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         rows.append({"name": "conv_pass_2d", "dtype": str(dtype).removeprefix("torch."),
@@ -1598,7 +2060,8 @@ def main() -> None:
         rows.append({"name": "conv3x3_dw", "dtype": str(dtype).removeprefix("torch."),
                      "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_dw.cu",
                      "replaces": "cellulus_tpu/ops/pallas_dw.py:64",
-                     "launches": k2_launches[dtype], **k2[dtype]})
+                     "launches": sum(k2_paths[dtype].values()),
+                     "launches_by_path": k2_paths[dtype], **k2[dtype]})
     rows.append({"name": "ball_stats", "route": "cuda",
                  "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
                  "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",

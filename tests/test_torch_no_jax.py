@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package, and
+"""The port, chip_smoke.py and the port's scripts (``scripts/torch_*.py``)
+import neither JAX nor the JAX package, and
 the port runs end to end on the CPU through its API and its command line."""
 
 import ast
@@ -134,12 +135,16 @@ def _imported_modules(path: Path):
 
 
 def test_no_jax_imports_in_the_sources():
-    files = sorted((REPO / "cellulus_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted((REPO / "cellulus_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "scripts").glob("torch_*.py")))
     names = {str(f.relative_to(REPO)) for f in files}
     for module in ("datasets/zarr_dataset.py", "datasets/sampling.py", "datasets/elastic.py",
-                   "criterions/oce_loss.py", "train.py", "ops/conv_dw.py", "ops/conv_vjp.py",
-                   "utils/checkpoint.py", "utils/logger.py"):
+                   "datasets/elastic_device.py", "criterions/oce_loss.py", "train.py",
+                   "segment.py", "ops/conv_dw.py", "ops/conv_vjp.py", "utils/checkpoint.py",
+                   "utils/logger.py"):
         assert f"cellulus_tpu_torch/{module}" in names
+    for script in ("torch_kernel_check.py", "torch_learn_check.py", "torch_real_hela.py"):
+        assert f"scripts/{script}" in names
     offending = [
         (str(f.relative_to(REPO)), name)
         for f in files

@@ -432,15 +432,68 @@ def test_stop_file_checkpoints_and_exits(one_crop_container, tmp_path, monkeypat
     assert torch.load("models/000002.pth", weights_only=True)["iteration"] == 2
 
 
-@pytest.mark.parametrize("option", [
-    {"loss_mode": "grid"}, {"loss_mode": "dense"}, {"steps_per_dispatch": 2},
-    {"elastic_on_device": True}, {"transfer_precision": "native"}, {"remat": True},
-    {"packed_dw": True}, {"data_parallelism": 2},
-])
+@pytest.mark.parametrize("option", [{"steps_per_dispatch": 2}, {"data_parallelism": 2}])
 def test_unported_options_raise(one_crop_container, tmp_path, monkeypatch, option):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cellulus_tpu_torch.train(_port_config(one_crop_container, **option))
+
+
+@pytest.mark.parametrize("option", [
+    {"transfer_precision": "native"}, {"remat": True}, {"packed_dw": True},
+])
+def test_host_pair_options_match_jax(blob_container_2d, tmp_path, monkeypatch, option):
+    """Options that keep the host pair stream: the JAX package's train() and
+    the port's with the option, from one .pth, give loss.csv rows that
+    agree at rtol 1e-5 (as without it, ``test_train_runtime_matches_jax``)."""
+    start = tmp_path / "start.pth"
+    save_torch_checkpoint(start, init_params(jax.random.PRNGKey(0), SPEC), iteration=-1,
+                          logger_data={"loss": [], "oce_loss": []})
+    for name in ("jax", "port"):
+        (tmp_path / name).mkdir()
+    monkeypatch.chdir(tmp_path / "jax")
+    jax_config = JaxExperimentConfig(**_train_dict(blob_container_2d, **option))
+    jax_config.model_config.checkpoint = str(start)
+    cellulus_tpu.train(jax_config)
+    monkeypatch.chdir(tmp_path / "port")
+    state = cellulus_tpu_torch.train(_port_config(blob_container_2d, str(start), **option))
+    want, got = _csv_rows(tmp_path / "jax" / "loss.csv"), _csv_rows(tmp_path / "port" / "loss.csv")
+    assert len(got) == len(want) == 3
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert state["iteration"] == 2
+
+
+@pytest.mark.parametrize("option", [
+    {"loss_mode": "grid"},
+    {"loss_mode": "dense"},
+    {"elastic_deform": True, "elastic_on_device": True},
+])
+def test_key_driven_options_run_beside_pairs(one_crop_container, tmp_path, monkeypatch,
+                                             option):
+    """Options whose draws come from the step's generator (the JAX package
+    draws from its key, so its loss.csv is another sample): train() runs
+    them for 3 steps, and each loss lies within 10% of the device-pair run
+    from the same weights on the same crop (grid and dense scale their sums
+    to the pair loss's pair count; the warp keeps the crop's statistics).
+    Dense's R offsets are shared by the whole step, so its estimate of a
+    step's loss is noisy: its first loss within 10%, the others within 50%."""
+    common = dict(max_iterations=3, device_pair_sampling=True)
+    monkeypatch.chdir(tmp_path)
+    pairs = cellulus_tpu_torch.train(_port_config(one_crop_container, **common))
+    os.rename("loss.csv", "pairs.csv")
+    if option.get("loss_mode") == "dense":
+        with pytest.warns(UserWarning, match="dense"):
+            state = cellulus_tpu_torch.train(_port_config(one_crop_container, **common,
+                                                          **option))
+    else:
+        state = cellulus_tpu_torch.train(_port_config(one_crop_container, **common, **option))
+    got, want = _csv_rows("loss.csv"), _csv_rows("pairs.csv")
+    assert len(got) == 3 and np.isfinite(got).all()
+    got, want = np.asarray(got)[:, 0], np.asarray(want)[:, 0]
+    np.testing.assert_allclose(got[0], want[0], rtol=0.1)
+    np.testing.assert_allclose(got, want, rtol=0.5 if option.get("loss_mode") == "dense" else 0.1)
+    assert state["iteration"] == 2 and pairs["iteration"] == 2
+    assert sorted(os.listdir("models")) == ["000000.pth", "000002.pth", "best_loss.pth"]
 
 
 def test_pallas_dw_is_accepted(one_crop_container, tmp_path, monkeypatch):
