@@ -76,11 +76,14 @@ class InferenceConfig:
             `p_salt_pepper == 0` (with noise the TTA draws differ: tiles
             key noise per tile, the sharded forward per sample). Not
             ported: values of 2 and above raise (ROADMAP M13).
-        device_nucleus: run "nucleus" post-processing on the device (all
-            instances of a sample at once). Not ported: when it resolves to
-            true (the field, or when ``None`` the
-            ``CELLULUS_TPU_DEVICE_NUCLEUS`` env var) nucleus mode raises
-            (ROADMAP M11.2); the host path runs otherwise.
+        device_nucleus: run "nucleus" post-processing on the device, all
+            instances of a sample at once (``ops/nucleus.py``, the JAX
+            package's device path: per-id histograms, a batched Otsu and
+            hole filling by connected components of the dropped pixels),
+            when it resolves to true: the field, or when ``None`` the
+            ``CELLULUS_TPU_DEVICE_NUCLEUS`` env var. It differs from the
+            host path only where one instance nests inside another's
+            cavity. Either way the size filter runs on the device.
         pallas_mean_shift: in the JAX package, selects its Pallas
             ball-kernel fit. The port has one fit route, the hand kernel
             (``csrc/ball_stats.cu``) on the card, whatever this says.

@@ -62,9 +62,16 @@ class TrainConfig:
             offsets make gradients ~10x noisier and training stalls;
             ``train()`` warns). Grid and dense draw from the step's
             generator, as device pairs do.
-        steps_per_dispatch: [tpu extension] Steps fused into one device
-            dispatch (``lax.scan`` in the JAX package). Not ported: values
-            above 1 raise (ROADMAP M9.3, CUDA graphs of K steps).
+        steps_per_dispatch: [tpu extension] Steps run as one chunk
+            (``lax.scan`` in the JAX package). On a CUDA device the K steps
+            of a chunk are one CUDA graph, captured once per chunk length
+            and replayed, with Adam ``capturable`` and the milestone rate
+            read on the device; on the CPU the chunk runs its steps
+            eagerly. The losses come back once a chunk, cadence actions
+            (best model, checkpoints, snapshots, the stop file) act at the
+            chunk's end and save under its last iteration, and the last
+            chunk may be shorter. ``loss_mode="dense"`` reads its reference
+            offsets on the host every step and raises with values above 1.
         transfer_precision: [tpu extension] "float32" ships normalized crops;
             "native" ships crops in the source dtype (uint8 crops are a
             quarter of the float32 bytes, uint16 half) and the step

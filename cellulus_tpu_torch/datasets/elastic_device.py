@@ -41,12 +41,15 @@ from .elastic import ROTATION_INTERVAL, SCALE_INTERVAL, SUBSAMPLE
 
 def _resize_weights(input_size: int, output_size: int, device) -> torch.Tensor:
     """``(input_size, output_size)`` float32 weights of JAX's linear
-    ``compute_weight_mat`` (scale = output / input, no translation)."""
+    ``compute_weight_mat`` (scale = output / input, no translation), built
+    on ``device``: no copy from the host, so the warp captures in a CUDA
+    graph (the two scales are host scalars, kernel arguments)."""
     f32 = torch.float32
     inv_scale = torch.tensor(1.0 / (output_size / input_size), dtype=f32)
     kernel_scale = torch.clamp(inv_scale, min=1.0)
-    sample = (torch.arange(output_size, dtype=f32) + 0.5) * inv_scale - 0.5
-    x = (sample[None, :] - torch.arange(input_size, dtype=f32)[:, None]).abs() / kernel_scale
+    sample = (torch.arange(output_size, dtype=f32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(input_size, dtype=f32, device=device)[:, None]).abs()
+    x = x / kernel_scale
     weights = torch.clamp(1 - x, min=0.0)
     total = weights.sum(dim=0, keepdim=True)
     weights = torch.where(
@@ -55,7 +58,7 @@ def _resize_weights(input_size: int, output_size: int, device) -> torch.Tensor:
         torch.zeros_like(weights),
     )
     inside = (sample >= -0.5) & (sample <= input_size - 0.5)
-    return torch.where(inside[None, :], weights, torch.zeros_like(weights)).to(device)
+    return torch.where(inside[None, :], weights, torch.zeros_like(weights))
 
 
 def resize_linear(x: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
@@ -106,9 +109,10 @@ def deformation_grid(
         disp = resize_linear(resize_linear(control_points, sub_shape), tuple(crop_size))
         grid = grid + disp
 
-    centers = torch.tensor([(p - 1) / 2.0 for p in padded_spatial], dtype=torch.float32,
-                           device=device)
-    return grid + centers.reshape((ndim,) + (1,) * ndim)
+    # each axis's centre added as a scalar: no copy from the host
+    centers = [(p - 1) / 2.0 for p in padded_spatial]
+    return torch.stack([g + c for g, c in zip(grid.unbind(dim=-ndim - 1), centers)],
+                       dim=-ndim - 1)
 
 
 def _reflect_index(idx: torch.Tensor, size: int) -> torch.Tensor:

@@ -5,14 +5,17 @@ Port of ``cellulus_tpu/segment.py`` (``cell_segment_sample``,
 
 - "cell": halo removal (grow by ``grow_distance``, then shrink by
   ``shrink_distance``) as disk convolutions on the device;
-- "nucleus": per instance, inside its bounding box, an Otsu threshold of
-  the raw image's values under the instance and hole filling, on the host
-  (the JAX package's host path).
+- "nucleus": per instance, an Otsu threshold of the raw image's values
+  under the instance and hole filling: on the host, one instance at a time
+  inside its bounding box (the JAX package's host path), or with
+  ``device_nucleus`` all instances at once on the device
+  (``ops/nucleus.py``, the JAX package's device path).
 
 Both end with connected components (full connectivity: 8 in 2D, 26 in 3D),
-the ``min_size`` filter and a consecutive relabel on the host. With
-``min_size == 0`` the post-processed detections are kept as they are,
-without relabelling, as in the reference.
+the ``min_size`` filter and a consecutive relabel on the device
+(``ops/components.py:size_filter_device``); only uint16 labels come back to
+the host. With ``min_size == 0`` the post-processed detections are kept as
+they are, without relabelling, as in the reference.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ from scipy.ndimage import binary_fill_holes, find_objects
 from .configs import InferenceConfig
 from .io import DatasetMetaData, zarr
 from .io.meta_data import spatial_attrs
-from .ops.components import filter_relabel
+from .ops.components import size_filter_device
 from .ops.morphology import halo_removal
+from .ops.nucleus import nucleus_partition_device
 from .ops.otsu import threshold_otsu
 from .utils.env import resolve_flag
 
@@ -36,12 +40,24 @@ def want_device_nucleus(inference_config: InferenceConfig) -> bool:
     return resolve_flag(inference_config.device_nucleus, "CELLULUS_TPU_DEVICE_NUCLEUS")
 
 
-def _size_filter(segmentation: np.ndarray, min_size: int) -> np.ndarray:
-    """Components below ``min_size`` dropped and the rest relabelled; with
-    ``min_size == 0`` the labels are kept as they are."""
-    if min_size == 0:
-        return segmentation
-    return filter_relabel(segmentation, int(min_size))
+def _check_uint16_range(segmentation: np.ndarray) -> None:
+    if segmentation.dtype != np.uint16 and segmentation.size:
+        lo, hi = segmentation.min(), segmentation.max()
+        if lo < 0 or hi > np.iinfo(np.uint16).max:
+            raise ValueError(
+                f"segment needs uint16-range labels, got [{lo}, {hi}] "
+                f"in dtype {segmentation.dtype}"
+            )
+
+
+def _to_device(array: np.ndarray, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(array, dtype=dtype)).to(device)
+
+
+def _size_filter(labels: torch.Tensor, min_size: int, dtype) -> np.ndarray:
+    """The size filter on the labels' device; the uint16 labels come down
+    and are returned in ``dtype``."""
+    return size_filter_device(labels, int(min_size)).cpu().numpy().astype(dtype, copy=False)
 
 
 def cell_segment_sample(
@@ -51,17 +67,25 @@ def cell_segment_sample(
     min_size: int,
     device,
 ) -> np.ndarray:
-    """Halo removal + size filter + relabel of one 2D or 3D label image."""
-    if segmentation.dtype != np.uint16 and segmentation.size:
-        lo, hi = segmentation.min(), segmentation.max()
-        if lo < 0 or hi > np.iinfo(np.uint16).max:
-            raise ValueError(
-                f"cell_segment_sample needs uint16-range labels, got [{lo}, {hi}] "
-                f"in dtype {segmentation.dtype}"
-            )
-    seg = torch.from_numpy(np.ascontiguousarray(segmentation, dtype=np.int32)).to(device)
-    seg = halo_removal(seg, float(grow_distance), float(shrink_distance)).cpu().numpy()
-    return _size_filter(seg, min_size).astype(segmentation.dtype)
+    """Halo removal, connected components, size filter and relabel of one
+    2D or 3D label image in one pass on ``device``
+    (``cellulus_tpu/segment.py:cell_segment_sample``): uint16 detections go
+    up, uint16 labels come down, returned in the input's dtype."""
+    _check_uint16_range(segmentation)
+    seg = halo_removal(_to_device(segmentation, np.int32, device), float(grow_distance),
+                       float(shrink_distance))
+    return _size_filter(seg, min_size, segmentation.dtype)
+
+
+def nucleus_segment_sample(segmentation: np.ndarray, raw_image: np.ndarray, min_size: int,
+                           device) -> np.ndarray:
+    """The device nucleus partition (``ops/nucleus.py``) and the size filter
+    of one label image on ``device``, as the JAX package's device path
+    (``cellulus_tpu/segment.py:255-263``)."""
+    _check_uint16_range(segmentation)
+    partition = nucleus_partition_device(_to_device(segmentation, np.int32, device),
+                                         _to_device(raw_image, np.float32, device))
+    return _size_filter(partition, min_size, segmentation.dtype)
 
 
 def nucleus_partition(segmentation: np.ndarray, raw_image: np.ndarray) -> np.ndarray:
@@ -95,12 +119,7 @@ def nucleus_partition(segmentation: np.ndarray, raw_image: np.ndarray) -> np.nda
 def segment(inference_config: InferenceConfig, device) -> None:
     ic = inference_config
     nucleus = ic.post_processing == "nucleus"
-    if nucleus and want_device_nucleus(ic):
-        raise NotImplementedError(
-            "device_nucleus is not ported yet (ROADMAP: M11.2, device nucleus "
-            "with device connected components); the host nucleus path runs "
-            "with device_nucleus=false"
-        )
+    device_nucleus = nucleus and want_device_nucleus(ic)
     meta = DatasetMetaData.from_dataset_config(ic.dataset_config)
     f = zarr.open(ic.segmentation_dataset_config.container_path, "a")
     ds_in = f[ic.segmentation_dataset_config.secondary_dataset_name]
@@ -120,8 +139,11 @@ def segment(inference_config: InferenceConfig, device) -> None:
         raw_image = np.asarray(ds_raw[sample, 0]) if nucleus else None
         for k in range(ic.num_bandwidths):
             detections = np.asarray(ds_in[sample, k])
-            if nucleus:
-                seg = _size_filter(nucleus_partition(detections, raw_image), ic.min_size)
+            if device_nucleus:
+                seg = nucleus_segment_sample(detections, raw_image, ic.min_size, device)
+            elif nucleus:
+                seg = _size_filter(_to_device(nucleus_partition(detections, raw_image),
+                                              np.int32, device), ic.min_size, np.uint16)
             else:
                 seg = cell_segment_sample(detections, ic.grow_distance, ic.shrink_distance,
                                           ic.min_size, device)

@@ -1,7 +1,7 @@
 """Training runtime: crops + pair sampling -> U-Net -> OCE loss -> Adam.
 
-Port of ``cellulus_tpu/train.py`` on one device with
-``steps_per_dispatch=1`` (``train.py:646-1253``), 2D and 3D. Each step runs
+Port of ``cellulus_tpu/train.py`` on one device (``train.py:646-1345``),
+2D and 3D. Each step runs
 the U-Net's training path (in 2D every 3x3 filter gradient through kernel
 K2 on the card; in 3D library convolutions, as in the JAX package),
 takes the OCE loss of the configured ``loss_mode`` ("pairs" with host or
@@ -12,8 +12,10 @@ iteration); ``elastic_on_device`` puts the warp in front of them, and
 ``transfer_precision="native"`` normalizes crops on the device. Host work
 (crops, host elastic warp, host pairs) overlaps the device through the
 threaded batch loader, and the loss is fetched one step late so the host
-does not wait for the step in flight. Checkpoints are reference-format
-``.pth`` files that ``infer`` reads.
+does not wait for the step in flight. With ``steps_per_dispatch = K > 1``
+the loop runs in chunks of K steps (:class:`StepChunks`), on the card as
+one CUDA graph a chunk. Checkpoints are reference-format ``.pth`` files
+that ``infer`` reads.
 
 Options of the JAX package that are not on this path raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -44,7 +46,7 @@ from .models import (
     unet_from_config,
 )
 from .utils.checkpoint import checkpoint_path, load_train_state, save_checkpoint, train_state
-from .utils.device import compute_dtype_for, resolve_device, seeded_generator
+from .utils.device import compute_dtype_for, generator_seed, resolve_device, seeded_generator
 from .utils.logger import get_logger
 
 
@@ -59,6 +61,12 @@ class TrainOptimizer:
     ``learning_rate * lr_decay_factor ** (milestones <= count)``, ``count``
     the updates applied before this one (optax ``scale_by_schedule``); the
     count is Adam's own step state, so it survives a resume.
+
+    On a CUDA device, where a chunk of steps may be one CUDA graph, Adam
+    runs ``capturable`` at every ``steps_per_dispatch``, with its step count
+    and its rate in device tensors; a milestone schedule sets the rate on
+    the device from that count: no step reads anything on the host, and a
+    step has the same arithmetic inside a graph and out of one.
     """
 
     def __init__(
@@ -72,10 +80,18 @@ class TrainOptimizer:
         log_grad_norm: bool = False,
     ):
         self.params = list(params)
-        self.hyper = dict(lr=float(learning_rate), betas=(0.9, 0.999), eps=1e-8,
-                          weight_decay=float(weight_decay))
+        self.learning_rate = float(learning_rate)
+        self.capturable = self.params[0].device.type == "cuda"
+        lr = self.learning_rate
+        if self.capturable:
+            lr = torch.tensor(lr, dtype=torch.float32, device=self.params[0].device)
+        self.hyper = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=float(weight_decay),
+                          capturable=self.capturable)
         self.adam = torch.optim.Adam(self.params, **self.hyper)
         self.milestones = sorted(int(m) for m in lr_milestones or ())
+        # on the parameters' device, where a captured step reads them
+        self.milestone_tensor = torch.tensor(self.milestones, dtype=torch.float32,
+                                             device=self.params[0].device)
         self.lr_decay_factor = float(lr_decay_factor)
         self.grad_clip_norm = grad_clip_norm
         self.log_grad_norm = log_grad_norm
@@ -88,7 +104,14 @@ class TrainOptimizer:
 
     def learning_rate_at(self, count: int) -> float:
         passed = sum(count >= m for m in self.milestones)
-        return self.hyper["lr"] * self.lr_decay_factor**passed
+        return self.learning_rate * self.lr_decay_factor**passed
+
+    def rate_on_device(self, count: torch.Tensor) -> torch.Tensor:
+        """:meth:`learning_rate_at` of a count held in a tensor, computed on
+        its device in float64 and rounded to float32."""
+        passed = (self.milestone_tensor.to(count.device) <= count).sum()
+        rate = self.learning_rate * self.lr_decay_factor ** passed.to(torch.float64)
+        return rate.to(torch.float32)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -99,22 +122,44 @@ class TrainOptimizer:
         elif self.log_grad_norm:
             norms = [torch.linalg.vector_norm(p.grad) for p in self.params if p.grad is not None]
             self.grad_norm = torch.linalg.vector_norm(torch.stack(norms))
-        if self.milestones:
+        if self.milestones and self.capturable:
+            state = self.adam.state.get(self.params[0])
+            count = state["step"] if state else torch.zeros((), device=self.params[0].device)
+            self.hyper["lr"].copy_(self.rate_on_device(count))
+        elif self.milestones:
             lr = self.learning_rate_at(self.count)
             for group in self.adam.param_groups:
                 group["lr"] = lr
-        self.adam.step()
+        if not self.capturable:
+            self.adam.step()
+            return
+        with warnings.catch_warnings():
+            # torch warns that a capturable Adam steps outside a graph: the
+            # steps of steps_per_dispatch = 1 do, by design
+            warnings.filterwarnings("ignore", message=".*capturable=True.*")
+            self.adam.step()
 
     def state_dict(self) -> Dict[str, Any]:
-        return self.adam.state_dict()
+        state = self.adam.state_dict()
+        for group in state["param_groups"]:
+            group["lr"] = self.learning_rate
+        return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Restore the moments and the step count; the hyper-parameters
         stay this run's, as the JAX package rebuilds its chain from the
-        config and restores only the state arrays."""
+        config and restores only the state arrays. The step count goes
+        where this run's Adam keeps it (the parameter's device when
+        capturable, else the host), so a checkpoint resumes across
+        ``steps_per_dispatch``."""
         self.adam.load_state_dict(state)
         for group in self.adam.param_groups:
             group.update(self.hyper)
+        for p in self.params:
+            st = self.adam.state.get(p)
+            if st:
+                st["step"] = st["step"].to(device=p.device if self.capturable else "cpu",
+                                           dtype=torch.float32)
 
 
 def make_optimizer(
@@ -357,6 +402,144 @@ def make_train_step_dense(model, optimizer, temperature: float, regularizer_weig
     return step
 
 
+class StepChunks:
+    """The train steps of one chunk of ``steps_per_dispatch`` iterations, the
+    port of ``make_multi_step`` (``cellulus_tpu/train.py:434-461``):
+    ``run(it_start, batches) -> (losses (k,), oces (k,), grad_norm)``
+    float32 device tensors, ``grad_norm`` the raw gradient norm of the
+    chunk's last step when the optimizer logs it (else None). A graph's
+    outputs are its static buffers: read them before the next ``run``.
+
+    ``step`` takes ``(raw, generator)`` when ``key_driven`` (its draws come
+    from the generator), else ``(raw, anchors, references)``; ``batches``
+    are the loader's.
+
+    On the CPU the k steps run one after another, each key-driven step with
+    a generator seeded from (``seed`` + 17, iteration), as in the loop of
+    one step. On a CUDA device they are one CUDA graph, captured at the
+    first chunk of each length and replayed for the next ones: the inputs
+    are copied into the graph's static ``(k, ...)`` buffers and step j
+    draws from a generator of its own, registered with the graph and seeded
+    before each replay from (``seed`` + 17, iteration), so a replay draws
+    what the eager steps draw. Capture follows :data:`WARMUP` eager steps on
+    a side stream (they build the kernels and Adam's state); the parameters
+    and Adam's state are restored after them, so the first replay starts
+    from the state the chunk was handed. The optimizer must be
+    ``capturable`` (its parameters on the card). ``graphed=False`` runs the
+    steps eagerly on any device (the yardstick a graph is held against).
+    ``replays[k]`` counts each graph's replays.
+    """
+
+    WARMUP = 2
+
+    def __init__(self, step, model, optimizer, device, key_driven: bool, seed: int,
+                 graphed: Optional[bool] = None):
+        self.step = step
+        self.model = model
+        self.optimizer = optimizer
+        self.device = torch.device(device)
+        self.key_driven = key_driven
+        self.seed = seed
+        self.graphed = self.device.type == "cuda" if graphed is None else graphed
+        if self.graphed and not optimizer.capturable:
+            raise ValueError("a graphed chunk needs a capturable optimizer")
+        self.graphs: Dict[int, tuple] = {}
+        self.replays: Dict[int, int] = {}
+        self.generators: List[torch.Generator] = []
+
+    def _one(self, inputs, iteration: int, generator=None):
+        if not self.key_driven:
+            return self.step(*inputs)
+        if generator is None:
+            generator = seeded_generator(self.device, self.seed + 17, iteration)
+        return self.step(*inputs, generator)
+
+    def _seed(self, it_start: int, k: int) -> None:
+        for j, gen in enumerate(self.generators[:k]):
+            gen.manual_seed(generator_seed(self.seed + 17, it_start + j))
+
+    def host_inputs(self, batch):
+        """A loader batch's step inputs as host tensors (raw channels-last)."""
+        raw = torch.from_numpy(np.ascontiguousarray(np.moveaxis(batch[0], 1, -1)))
+        if self.key_driven:
+            return (raw,)
+        return raw, torch.from_numpy(batch[1]), torch.from_numpy(batch[2])
+
+    def run(self, it_start: int, batches):
+        inputs = [self.host_inputs(b) for b in batches]
+        if not self.graphed:
+            losses, oces = [], []
+            for j, step_inputs in enumerate(inputs):
+                loss, oce, _ = self._one([t.to(self.device) for t in step_inputs], it_start + j)
+                losses.append(loss.float())
+                oces.append(oce.float())
+            grad_norm = self.optimizer.grad_norm if self.optimizer.log_grad_norm else None
+            return torch.stack(losses), torch.stack(oces), grad_norm
+        k = len(inputs)
+        if k not in self.graphs:
+            self.graphs[k] = self._capture(it_start, inputs)
+            self.replays[k] = 0
+        graph, statics, outputs = self.graphs[k]
+        for static, kind in zip(statics, zip(*inputs)):
+            for j, t in enumerate(kind):
+                static[j].copy_(t)
+        self._seed(it_start, k)
+        graph.replay()
+        self.replays[k] += 1
+        return outputs
+
+    def _snapshot(self):
+        params = [t.detach().clone() for t in self.model.state_dict().values()]
+        adam = {p: {n: v.clone() for n, v in st.items()}
+                for p, st in self.optimizer.adam.state.items()}
+        return params, adam
+
+    @torch.no_grad()
+    def _restore(self, snapshot) -> None:
+        params, adam = snapshot
+        for t, saved in zip(self.model.state_dict().values(), params):
+            t.copy_(saved)
+        for p, st in self.optimizer.adam.state.items():
+            for n, v in st.items():
+                if p in adam:
+                    v.copy_(adam[p][n])
+                else:  # the warm-up made this state: Adam starts at zeros
+                    v.zero_()
+
+    def _capture(self, it_start: int, inputs):
+        k = len(inputs)
+        while len(self.generators) < k:
+            self.generators.append(torch.Generator(device=self.device))
+        statics = [torch.stack(kind).to(self.device) for kind in zip(*inputs)]
+        snapshot = self._snapshot()
+        self._seed(it_start, k)
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for j in range(min(self.WARMUP, k)):
+                self._one([s[j] for s in statics], it_start + j, self.generators[j])
+        current.wait_stream(side)
+        self._restore(snapshot)
+        losses = torch.zeros(k, dtype=torch.float32, device=self.device)
+        oces = torch.zeros(k, dtype=torch.float32, device=self.device)
+        grad_norm = None
+        if self.optimizer.log_grad_norm:
+            grad_norm = torch.zeros((), dtype=torch.float32, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators[:k]:
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph):
+            for j in range(k):
+                loss, oce, _ = self._one([s[j] for s in statics], it_start + j,
+                                         self.generators[j])
+                losses[j].copy_(loss)
+                oces[j].copy_(oce)
+            if grad_norm is not None:
+                grad_norm.copy_(self.optimizer.grad_norm)
+        return graph, statics, (losses, oces, grad_norm)
+
+
 def save_snapshot(raw_b, prediction_b, iteration: int, path="snapshots.zarr",
                   axis_names=None) -> None:
     """Write raw + mean-centred prediction (reference ``train.py:194-224``).
@@ -453,13 +636,15 @@ def check_3d_density_envelope(
 
 
 def _check_options(train_config) -> None:
-    """Raise for the JAX package's options that are not ported yet, and for
-    its two invalid combinations (``cellulus_tpu/train.py:683-705``); warn
-    that dense loss does not learn."""
-    if train_config.steps_per_dispatch > 1:
+    """Raise for the JAX package's options that are not ported yet (dense
+    loss in chunks, multi-GPU), and for its two invalid combinations
+    (``cellulus_tpu/train.py:683-705``); warn that dense loss does not
+    learn."""
+    if train_config.steps_per_dispatch > 1 and train_config.loss_mode == "dense":
         raise NotImplementedError(
-            "steps_per_dispatch > 1 is not ported yet (ROADMAP: M9.3, "
-            "CUDA graphs of K steps)"
+            "loss_mode='dense' with steps_per_dispatch > 1 is not ported: the dense "
+            "step reads its reference offsets on the host (offs.tolist()) every "
+            "step, which a CUDA graph cannot capture (ROADMAP: M9.3, dense)"
         )
     if (train_config.data_parallelism or 1) > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
@@ -735,53 +920,103 @@ def train(experiment_config: ExperimentConfig,
         except OSError:
             return False
 
-    with loader:
-        batches = iter(loader)
-        for iteration in range(start_iteration, train_config.max_iterations):
-            batch = next(batches)
-            raw_np = batch[0]
-            raw = to_device(raw_np)
-            if key_driven:
-                generator = seeded_generator(device, train_config.seed + 17, iteration)
-                loss, oce, offsets = step(raw, generator)
-            else:
-                anchors = torch.from_numpy(batch[1]).to(device)
-                references = torch.from_numpy(batch[2]).to(device)
-                loss, oce, offsets = step(raw, anchors, references)
-
-            if pending is not None:
-                consume(pending)
-            pending = (iteration, loss, oce) + (
-                (optimizer.grad_norm,) if train_config.log_grad_norm else ()
-            )
-            is_ckpt = (
-                iteration % train_config.save_model_every == 0
-                or iteration == train_config.max_iterations - 1
-            )
-            is_cadence = (
-                is_ckpt
-                or iteration % train_config.save_best_model_every == 0
-                or iteration % train_config.save_snapshot_every == 0
-            )
-            if is_cadence:
-                consume(pending)
-                pending = None
-                if elastic_device and iteration % train_config.save_snapshot_every == 0:
-                    # the step's offsets describe the warped crop: snapshot
-                    # the padded crop with its own forward
+    def run_chunks(batches) -> int:
+        """The loop in chunks of ``steps_per_dispatch`` steps
+        (``cellulus_tpu/train.py:1253-1345``): the losses come back once a
+        chunk and are logged a row an iteration; cadence actions and the
+        stop file act at the chunk's end, saved under its last iteration
+        (the parameters in hand), so a resume replays nothing. Returns
+        the last iteration run."""
+        chunks = StepChunks(step, model, optimizer, device, key_driven, train_config.seed)
+        iteration = start_iteration - 1
+        it = start_iteration
+        while it < train_config.max_iterations:
+            k_eff = min(K, train_config.max_iterations - it)
+            chunk = [next(batches) for _ in range(k_eff)]
+            losses, oces, grad_norm = chunks.run(it, chunk)
+            losses, oces = losses.cpu().numpy(), oces.cpu().numpy()
+            chunk_end = it + k_eff
+            do_best = do_ckpt = do_snapshot = False
+            for j in range(k_eff):
+                iteration = it + j
+                # only the chunk's last raw gradient norm is observable:
+                # NaN rows keep the column aligned with the iterations
+                gn = ()
+                if train_config.log_grad_norm:
+                    gn = (float(grad_norm) if j == k_eff - 1 else float("nan"),)
+                consume((iteration, losses[j], oces[j]) + gn)
+                do_best |= iteration % train_config.save_best_model_every == 0
+                do_ckpt |= (iteration % train_config.save_model_every == 0
+                            or iteration == train_config.max_iterations - 1)
+                do_snapshot |= iteration % train_config.save_snapshot_every == 0
+            raw_np = chunk[-1][0]
+            if do_best or do_ckpt or do_snapshot:
+                offsets = None
+                if do_snapshot:
                     with torch.no_grad():
-                        offsets = model(_prep_raw(raw, input_scale, compute_dtype),
+                        offsets = model(_prep_raw(to_device(raw_np), input_scale, compute_dtype),
                                         compute_dtype)
-                cadence_actions(iteration, offsets, raw_np)
+                cadence_actions(iteration, offsets, raw_np, do_best, do_ckpt, do_snapshot)
             if stop_requested():
-                if pending is not None:
-                    consume(pending)
-                    pending = None
-                cadence_actions(iteration, None, raw_np, do_best=False,
-                                do_ckpt=not is_ckpt, do_snapshot=False)
+                cadence_actions(iteration, None, raw_np, do_best=False, do_ckpt=not do_ckpt,
+                                do_snapshot=False)
                 print(f"Stop file {stop_path} found: checkpointed at iteration "
                       f"{iteration}, exiting the training loop")
                 break
+            it = chunk_end
+        return iteration
+
+    K = train_config.steps_per_dispatch
+    with loader:
+        batches = iter(loader)
+        if K > 1:
+            iteration = run_chunks(batches)
+        else:
+            for iteration in range(start_iteration, train_config.max_iterations):
+                batch = next(batches)
+                raw_np = batch[0]
+                raw = to_device(raw_np)
+                if key_driven:
+                    generator = seeded_generator(device, train_config.seed + 17, iteration)
+                    loss, oce, offsets = step(raw, generator)
+                else:
+                    anchors = torch.from_numpy(batch[1]).to(device)
+                    references = torch.from_numpy(batch[2]).to(device)
+                    loss, oce, offsets = step(raw, anchors, references)
+
+                if pending is not None:
+                    consume(pending)
+                pending = (iteration, loss, oce) + (
+                    (optimizer.grad_norm,) if train_config.log_grad_norm else ()
+                )
+                is_ckpt = (
+                    iteration % train_config.save_model_every == 0
+                    or iteration == train_config.max_iterations - 1
+                )
+                is_cadence = (
+                    is_ckpt
+                    or iteration % train_config.save_best_model_every == 0
+                    or iteration % train_config.save_snapshot_every == 0
+                )
+                if is_cadence:
+                    consume(pending)
+                    pending = None
+                    if elastic_device and iteration % train_config.save_snapshot_every == 0:
+                        # the step's offsets describe the warped crop: snapshot
+                        # the padded crop with its own forward
+                        with torch.no_grad():
+                            offsets = model(_prep_raw(raw, input_scale, compute_dtype),
+                                            compute_dtype)
+                    cadence_actions(iteration, offsets, raw_np)
+                if stop_requested():
+                    if pending is not None:
+                        consume(pending)
+                        pending = None
+                    cadence_actions(iteration, None, raw_np, do_best=False,
+                                    do_ckpt=not is_ckpt, do_snapshot=False)
+                    print(f"Stop file {stop_path} found: checkpointed at iteration "
+                          f"{iteration}, exiting the training loop")
+                    break
 
     logger.close()
     return train_state(iteration, lowest_loss, model, optimizer, logger.data)

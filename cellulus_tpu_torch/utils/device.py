@@ -33,11 +33,15 @@ def compute_dtype_for(precision: str) -> torch.dtype:
     raise ValueError(f"precision must be 'float32' or 'bfloat16', got {precision!r}")
 
 
+def generator_seed(*entropy: int) -> int:
+    """The seed :func:`seeded_generator` gives its generator: a
+    ``SeedSequence`` hash of the integers ``entropy``, so ``(s, 1)`` and
+    ``(s + 1, 0)`` give unrelated streams."""
+    return int(np.random.SeedSequence([int(e) for e in entropy]).generate_state(1, np.uint64)[0])
+
+
 def seeded_generator(device, *entropy: int) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded from the integers
-    ``entropy`` (a ``SeedSequence`` hash, so ``(s, 1)`` and ``(s + 1, 0)``
-    give unrelated streams)."""
-    state = np.random.SeedSequence([int(e) for e in entropy]).generate_state(1, np.uint64)
+    """A ``torch.Generator`` on ``device`` seeded by :func:`generator_seed`."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(state[0]))
+    gen.manual_seed(generator_seed(*entropy))
     return gen

@@ -8,8 +8,9 @@ bfloat16, host elastic augmentation, 5,000 steps on the two panels
 (``examples/real-data/vendored/hela_large.npy`` and ``hela_panel.npy``),
 then infer on ``best_loss.pth`` over the clean 253x253 panel with 5
 bandwidths and object size 23, segmented in "nucleus" mode (the reference's
-HeLa setting) and scored against ``hela_panel_silver_gt.npy``; then the
-same detections segmented in "cell" mode and scored again. Prints one
+HeLa setting, on the host) and scored against ``hela_panel_silver_gt.npy``;
+then the same detections segmented in "nucleus" mode on the device
+(``device_nucleus``) and in "cell" mode, each scored again. Prints one
 ``RESULT`` JSON line with the best F1/SEG of each mode and each
 bandwidth's scores.
 """
@@ -101,8 +102,11 @@ def _best(results):
 
 def run_hela(work, iters: int = 5000, device: str = "cuda:0", seed: int = 0, log=None):
     """Train (unless ``iters`` is 0 and ``models/best_loss.pth`` exists),
-    then score nucleus and cell mode; returns ``{"nucleus": ..., "cell":
-    ..., "train_seconds": ..., "best_iteration": ...}``."""
+    then score nucleus mode on the host and on the device, and cell mode;
+    returns ``{"nucleus": ..., "nucleus_device": ..., "cell": ...,
+    "train_seconds": ..., "best_iteration": ...}``. The labels are the
+    ``segmentation``, ``segmentation_device`` and ``segmentation_cell``
+    datasets of ``work/out.zarr``."""
     import cellulus_tpu_torch
     import torch
     from cellulus_tpu_torch.io import zarr
@@ -128,16 +132,20 @@ def run_hela(work, iters: int = 5000, device: str = "cuda:0", seed: int = 0, log
                                          "resolution": [1, 1]})
         config.model_config.checkpoint = str(work / "models" / "best_loss.pth")
         nucleus = cellulus_tpu_torch.infer(config)
-        # cell mode on the same detections: segment and evaluate only
+        # the same detections segmented again: segment and evaluate only
         ic = config.inference_config
-        ic.post_processing = "cell"
         ic.prediction_dataset_config = ic.detection_dataset_config = None
-        ic.segmentation_dataset_config.dataset_name = "segmentation_cell"
-        ic.evaluation_dataset_config.secondary_dataset_name = "segmentation_cell"
-        cell = cellulus_tpu_torch.infer(config)
+        scores = {}
+        for mode, name, device_nucleus in (("nucleus_device", "segmentation_device", True),
+                                           ("cell", "segmentation_cell", False)):
+            ic.post_processing = mode.split("_")[0]
+            ic.device_nucleus = device_nucleus
+            ic.segmentation_dataset_config.dataset_name = name
+            ic.evaluation_dataset_config.secondary_dataset_name = name
+            scores[mode] = _best(cellulus_tpu_torch.infer(config))
         best_iteration = torch.load(work / "models" / "best_loss.pth",
                                     weights_only=True)["iteration"]
-    return {"nucleus": _best(nucleus), "cell": _best(cell), "train_seconds": train_seconds,
+    return {"nucleus": _best(nucleus), **scores, "train_seconds": train_seconds,
             "best_iteration": int(best_iteration), "iters": iters, "seed": seed}
 
 

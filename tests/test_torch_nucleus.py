@@ -1,17 +1,24 @@
-"""Nucleus post-processing of the port against the JAX package's host path
-(CPU): ``nucleus_partition`` on fixtures with holes and a constant-intensity
-instance, the whole segment stage on the JAX package's detections with the
-raw image in a container of its own, and the device path's refusal."""
+"""Nucleus post-processing of the port against the JAX package (CPU): the
+host path (``nucleus_partition``) on fixtures with holes and a
+constant-intensity instance, the device path
+(``ops/nucleus.py:nucleus_partition_device``) against the JAX package's
+device path exactly, a nested instance on which the two JAX paths differ,
+and the whole segment stage on the JAX package's detections with the raw
+image in a container of its own, by either path (the device one selected
+by the config field or by ``CELLULUS_TPU_DEVICE_NUCLEUS``)."""
 
 import numpy as np
 import pytest
+import torch
 
 from cellulus_tpu.configs import InferenceConfig as JaxInferenceConfig
 from cellulus_tpu.io import zarr
+from cellulus_tpu.ops.nucleus import nucleus_partition_device as jax_nucleus_partition_device
 from cellulus_tpu.segment import nucleus_partition as jax_nucleus_partition
 from cellulus_tpu.segment import segment as jax_segment
 from cellulus_tpu_torch.configs import InferenceConfig
-from cellulus_tpu_torch.segment import nucleus_partition, segment
+from cellulus_tpu_torch.ops.nucleus import nucleus_partition_device
+from cellulus_tpu_torch.segment import nucleus_partition, nucleus_segment_sample, segment
 
 
 def _fixture(ndim, seed=0):
@@ -92,26 +99,90 @@ def test_segment_stage_matches_jax(tmp_path, ndim, min_size):
     np.testing.assert_array_equal(outputs["port"], outputs["jax"])
 
 
+def _nested(ndim):
+    """Instance 1 a bright ring whose dark core holds instance 2 (constant
+    intensity): the JAX host path fills the core with 1 around 2, its
+    device path leaves the core's other pixels empty (their neighbours are
+    {1, 2}, ``cellulus_tpu/ops/nucleus.py:22-28``)."""
+    shape = (40, 44) if ndim == 2 else (24, 28, 30)
+    grid = np.stack(np.meshgrid(*[np.arange(s) for s in shape], indexing="ij"))
+    centre = (np.array(shape) / 2).reshape((-1,) + (1,) * ndim)
+    dist = np.sqrt(((grid - centre) ** 2).sum(0))
+    labels = np.zeros(shape, np.uint16)
+    raw = np.random.default_rng(ndim).normal(0.1, 0.02, shape).astype(np.float32)
+    labels[dist < 10] = 1
+    raw[dist < 10] = np.where(dist[dist < 10] > 6, 0.9, 0.15)
+    labels[dist < 3] = 2
+    raw[dist < 3] = 0.5
+    return labels, raw
+
+
+def _device(labels, raw):
+    return nucleus_partition_device(torch.from_numpy(labels.astype(np.int32)),
+                                    torch.from_numpy(raw)).numpy()
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_device_nucleus_matches_jax_device_path(ndim, seed):
+    labels, raw = _fixture(ndim, seed)
+    got = _device(labels, raw)
+    np.testing.assert_array_equal(got, jax_nucleus_partition_device(labels, raw))
+    # without nesting, the device path gives the host path's labels
+    np.testing.assert_array_equal(got, jax_nucleus_partition(labels, raw))
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_nested_instance_follows_the_jax_device_path(ndim):
+    labels, raw = _nested(ndim)
+    want = jax_nucleus_partition_device(labels, raw)
+    host = jax_nucleus_partition(labels, raw)
+    assert (want != host).any()  # the fixture nests
+    got = _device(labels, raw)
+    np.testing.assert_array_equal(got, want)
+    # the differing pixels are the core around instance 2, empty here
+    core = (host != want)
+    assert (got[core] == 0).all() and (host[core] == 1).all()
+    np.testing.assert_array_equal(nucleus_segment_sample(labels, raw, 0, "cpu"),
+                                  want.astype(np.uint16))
+
+
 @pytest.mark.parametrize("field,env", [(True, None), (None, "1")])
-def test_device_nucleus_raises(tmp_path, monkeypatch, field, env):
-    """``device_nucleus``, from the config or ``CELLULUS_TPU_DEVICE_NUCLEUS``,
-    raises naming its ROADMAP item; the env var off runs the host path."""
-    labels, raw = _fixture(2)
-    _write(tmp_path / "d.zarr", "raw", raw[None, None], 2)
-    _write(tmp_path / "d.zarr", "detection", labels[None, None], 2)
+def test_device_nucleus_stage_matches_jax(tmp_path, monkeypatch, field, env):
+    """The segment stage with ``device_nucleus`` from the config or from
+    ``CELLULUS_TPU_DEVICE_NUCLEUS`` against the JAX package's stage with the
+    same setting (``tests/test_pipeline.py:275-375``): two samples, two
+    bandwidths, a nested instance, min_size 20. Exactly equal labels."""
+    samples = [_fixture(2, 3), _nested(2)]
+    shape = samples[0][0].shape
+    detections = np.zeros((2, 2) + shape, np.uint16)
+    raw = np.zeros((2, 1) + shape, np.float32)
+    for i, (labels, image) in enumerate(samples):
+        h, w = labels.shape
+        detections[i, :, :h, :w] = labels
+        detections[i, 1][detections[i, 1] == 3] = 0
+        raw[i, 0, :h, :w] = image
+    _write(tmp_path / "raw.zarr", "raw", raw, 2)
     if env is not None:
         monkeypatch.setenv("CELLULUS_TPU_DEVICE_NUCLEUS", env)
-    ic = InferenceConfig(
-        dataset_config={"container_path": str(tmp_path / "d.zarr"), "dataset_name": "raw"},
-        segmentation_dataset_config={"container_path": str(tmp_path / "d.zarr"),
-                                     "dataset_name": "segmentation",
-                                     "secondary_dataset_name": "detection"},
-        post_processing="nucleus", min_size=0, device_nucleus=field,
-    )
-    with pytest.raises(NotImplementedError, match="ROADMAP: M11.2"):
-        segment(ic, "cpu")
-    if env is not None:
-        monkeypatch.setenv("CELLULUS_TPU_DEVICE_NUCLEUS", "0")
-        segment(ic, "cpu")
-        got = np.asarray(zarr.open(tmp_path / "d.zarr", "r")["segmentation"][0, 0])
-        np.testing.assert_array_equal(got, jax_nucleus_partition(labels, raw))
+    outputs = {}
+    for name, Config, run in (("jax", JaxInferenceConfig, jax_segment),
+                              ("port", InferenceConfig, lambda ic: segment(ic, "cpu"))):
+        out = tmp_path / f"{name}.zarr"
+        _write(out, "detection", detections, 2)
+        ic = Config(
+            dataset_config={"container_path": str(tmp_path / "raw.zarr"), "dataset_name": "raw"},
+            segmentation_dataset_config={"container_path": str(out),
+                                         "dataset_name": "segmentation",
+                                         "secondary_dataset_name": "detection"},
+            post_processing="nucleus", num_bandwidths=2, min_size=20, device_nucleus=field,
+        )
+        run(ic)
+        outputs[name] = np.asarray(zarr.open(out, "r")["segmentation"][...])
+    np.testing.assert_array_equal(outputs["port"], outputs["jax"])
+    # the nested sample took the device path: its core stays empty
+    labels, image = samples[1]
+    h, w = labels.shape
+    host = jax_nucleus_partition(labels, image)
+    assert (outputs["port"][1, 0, :h, :w][host != jax_nucleus_partition_device(labels, image)]
+            == 0).all()

@@ -432,7 +432,7 @@ def test_stop_file_checkpoints_and_exits(one_crop_container, tmp_path, monkeypat
     assert torch.load("models/000002.pth", weights_only=True)["iteration"] == 2
 
 
-@pytest.mark.parametrize("option", [{"steps_per_dispatch": 2}, {"data_parallelism": 2}])
+@pytest.mark.parametrize("option", [{"data_parallelism": 2}])
 def test_unported_options_raise(one_crop_container, tmp_path, monkeypatch, option):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
