@@ -23,11 +23,11 @@ def train(experiment_config, step_times=None):
     return mod.train(experiment_config, step_times)
 
 
-def infer(experiment_config, stage_seconds=None):
+def infer(experiment_config, stage_seconds=None, intervals=None):
     # imported on first use (it imports torch); the import rebinds this
     # attribute to the module, which is callable (see infer.py)
     mod = importlib.import_module(".infer", __name__)
-    return mod.infer(experiment_config, stage_seconds)
+    return mod.infer(experiment_config, stage_seconds, intervals)
 
 
 __all__ = ["infer", "train", "__version__"]

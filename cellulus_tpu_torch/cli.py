@@ -1,28 +1,172 @@
-"""Command line: ``python -m cellulus_tpu_torch {train,infer} <config.toml>``."""
+"""Command line of the port (``cellulus_tpu/cli.py``'s commands).
+
+    python -m cellulus_tpu_torch train <config.toml>
+    python -m cellulus_tpu_torch infer <config.toml> [--checkpoint-sweep] [--keep-sweep-outputs]
+    python -m cellulus_tpu_torch geometry <crop...> [--factors '2,2;2,2']
+    python -m cellulus_tpu_torch export <config.toml> <out_dir> [--platforms P] [--tile-batch N]
+    python -m cellulus_tpu_torch --version
+
+``train(argv)``, ``infer(argv)``, ``geometry(argv)`` and ``export(argv)``
+also run alone, as the JAX package's console scripts do. ``export`` is not
+ported yet: it parses its arguments and raises.
+"""
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 from .configs import ExperimentConfig
 
 
+def _load(config_file: str) -> ExperimentConfig:
+    print(f"Reading config from {config_file}")
+    return ExperimentConfig.from_toml(config_file)
+
+
+def train(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="Train a cellulus-tpu model (PyTorch port)")
+    parser.add_argument("config_file")
+    args = parser.parse_args(argv)
+    from .train import train as run
+
+    run(_load(args.config_file))
+
+
+def infer(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="Run cellulus-tpu inference (PyTorch port)")
+    parser.add_argument("config_file")
+    parser.add_argument(
+        "--checkpoint-sweep",
+        action="store_true",
+        help="score EVERY retained checkpoint (numbered + best_loss) "
+        "against the configured ground truth and select by measured F1 — "
+        "the unsupervised training loss can anti-select on real data; "
+        "requires evaluation_dataset_config",
+    )
+    parser.add_argument(
+        "--keep-sweep-outputs",
+        action="store_true",
+        help="keep each checkpoint's stage outputs instead of deleting "
+        "the throwaway sweep containers after scoring",
+    )
+    args = parser.parse_args(argv)
+    if args.checkpoint_sweep:
+        from .infer import checkpoint_sweep as run_sweep
+
+        run_sweep(_load(args.config_file), keep_outputs=args.keep_sweep_outputs)
+        return
+    from .infer import infer as run
+
+    run(_load(args.config_file))
+
+
+def export(argv=None) -> None:
+    """Serialize the trained tile predictor as a serving artifact: not
+    ported yet."""
+    parser = argparse.ArgumentParser(
+        description="Export a trained cellulus-tpu model for serving"
+    )
+    parser.add_argument("config_file", help="infer-style TOML naming the checkpoint")
+    parser.add_argument("output_dir")
+    parser.add_argument("--platforms", default=None)
+    parser.add_argument("--tile-batch", type=int, default=None)
+    parser.parse_args(argv)
+    raise NotImplementedError(
+        "export is not ported yet (ROADMAP: M14, export): the tile predictor "
+        "launches K1 through ctypes, which torch.export cannot trace until K1 "
+        "is a torch.library custom op"
+    )
+
+
+def geometry(argv=None) -> None:
+    """Print the U-Net input/output geometry for a crop size, and nearby
+    valid alternatives."""
+    parser = argparse.ArgumentParser(
+        description="Inspect valid-conv U-Net geometry for a crop size"
+    )
+    parser.add_argument("crop_size", type=int, nargs="+")
+    parser.add_argument(
+        "--factors",
+        default="2,2",
+        help="downsampling factors: semicolon-separated levels of "
+        "comma-separated per-dim factors, e.g. '2,2;2,2' or '1,2,2'",
+    )
+    args = parser.parse_args(argv)
+    factors = [[int(f) for f in level.split(",")] for level in args.factors.split(";")]
+
+    from .models.geometry import compute_geometry
+
+    crop = tuple(args.crop_size)
+    try:
+        g = compute_geometry(crop, factors)
+        print(f"input  {g.input_size}")
+        print(f"output {g.output_size}")
+        print(f"context (halo per side) {g.context}")
+    except ValueError as e:
+        print(f"invalid crop size {crop}: {e}")
+    # nearby valid sizes along each dim (isotropic probe)
+    valid = []
+    for delta in range(0, 32):
+        for sign in (1, -1) if delta else (1,):
+            cand = tuple(c + sign * delta for c in crop)
+            if any(c <= 0 for c in cand):
+                continue
+            try:
+                valid.append((cand, compute_geometry(cand, factors).output_size))
+            except ValueError:
+                pass
+        if len(valid) >= 5:
+            break
+    print("nearby valid sizes:")
+    for cand, out in valid[:5]:
+        print(f"  input {cand} -> output {out}")
+
+
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
     parser = argparse.ArgumentParser(prog="cellulus_tpu_torch")
+    parser.add_argument("--version", action="version", version=_version())
     sub = parser.add_subparsers(dest="command", required=True)
     for name, help_text in (
         ("train", "train the model; writes models/*.pth"),
         ("infer", "run predict -> detect -> segment -> evaluate"),
     ):
-        sub.add_parser(name, help=help_text).add_argument("config_file")
+        p = sub.add_parser(name, help=help_text)
+        p.add_argument("config_file")
+        if name == "infer":
+            p.add_argument("--checkpoint-sweep", action="store_true")
+            p.add_argument("--keep-sweep-outputs", action="store_true")
+    e = sub.add_parser("export", help="serving export (not ported yet)")
+    e.add_argument("config_file")
+    e.add_argument("output_dir")
+    e.add_argument("--platforms", default=None)
+    e.add_argument("--tile-batch", type=int, default=None)
+    g = sub.add_parser("geometry", help="U-Net geometry of a crop size")
+    g.add_argument("crop_size", type=int, nargs="+")
+    g.add_argument("--factors", default="2,2")
     args = parser.parse_args(argv)
-    print(f"Reading config from {args.config_file}")
-    config = ExperimentConfig.from_toml(args.config_file)
     if args.command == "train":
-        from .train import train
-
-        train(config)
+        train([args.config_file])
+    elif args.command == "infer":
+        rest = [args.config_file]
+        if args.checkpoint_sweep:
+            rest.append("--checkpoint-sweep")
+        if args.keep_sweep_outputs:
+            rest.append("--keep-sweep-outputs")
+        infer(rest)
+    elif args.command == "export":
+        rest = [args.config_file, args.output_dir]
+        if args.platforms:
+            rest += ["--platforms", args.platforms]
+        if args.tile_batch is not None:
+            rest += ["--tile-batch", str(args.tile_batch)]
+        export(rest)
     else:
-        from .infer import infer
+        geometry([str(c) for c in args.crop_size] + ["--factors", args.factors])
 
-        infer(config)
+
+def _version() -> str:
+    from . import __version__
+
+    return __version__

@@ -61,8 +61,13 @@ class InferenceConfig:
         vectorized_bandwidth_sweep: run all ``num_bandwidths`` mean-shift
             clusterings as one vmapped device computation (sharing one fit
             subsample) instead of serially.
-        pipelined: overlap predict/detect/segment across samples. Not
-            ported: ``True`` raises (ROADMAP M12).
+        pipelined: overlap predict/detect/segment across samples
+            (``pipeline.py``): predict in the calling thread, each sample's
+            detect and segment in a stage worker on its own CUDA stream, the
+            zarr writes in one I/O thread; the outputs equal the staged
+            path's. Takes effect when the prediction, detection and
+            segmentation configs are all present; otherwise the staged path
+            runs.
         device_detect: run the detect stage's preparation on the device
             (Otsu or the quantile, the mask, the coordinate grid and the
             gather) before the mean-shift fit and predict. ``None`` defers
@@ -89,7 +94,8 @@ class InferenceConfig:
             (``csrc/ball_stats.cu``) on the card, whatever this says.
         pipeline_ram_gb: host-RAM budget for pipelined inference's
             in-flight samples (each holds its float32 embeddings + a
-            centered copy + detections). ``None`` defers to the
+            centered copy + detections); the stage workers are capped, with
+            a ``RuntimeWarning``, so they fit it. ``None`` defers to the
             ``CELLULUS_TPU_PIPELINE_RAM_GB`` env var, then to a quarter of
             system RAM.
     """

@@ -37,6 +37,7 @@ from .ops.mean_shift import mean_shift_segmentation, mean_shift_sweep_fit_predic
 from .ops.otsu import quantile_device, threshold_otsu, threshold_otsu_device
 from .ops.peaks import smooth_peak_seeds
 from .utils.env import resolve_flag
+from .utils.profiling import time_device
 
 
 def want_device_detect(inference_config: InferenceConfig) -> bool:
@@ -111,10 +112,11 @@ def _meanshift_detect_device(embeddings: np.ndarray, D: int, ic: InferenceConfig
         seeds = ms.bin_seeds(X_fit.cpu().numpy(), bin_size=bandwidth)
         if len(seeds) == 0:
             continue
-        centers, n_final = ms.launch_fit(X_fit, seeds, bandwidth,
-                                         ic.mean_shift_max_iterations)
+        centers, n_final = time_device("detect.device", ms.launch_fit, X_fit, seeds,
+                                       bandwidth, ic.mean_shift_max_iterations)
         bw2 = ms.fit_thresholds(bandwidth)[0]
-        labels = ms._predict(X, ms._dedupe(centers, n_final, bw2), bw2)
+        kept = ms._dedupe(centers, n_final, bw2)
+        labels = time_device("detect.device", ms._predict, X, kept, bw2)
         det = torch.zeros(len(mask), dtype=torch.int32, device=dev)
         det[fg_t] = (labels + 1).int()
         detections[k] = det.to(torch.int16).cpu().numpy().view(np.uint16).reshape(spatial)

@@ -110,7 +110,7 @@ def ball_stats(centers: torch.Tensor, points: PointSet, bw2: float):
             S, points.x.shape[0], d, counts.data_ptr(), sums.data_ptr(), stream,
         )
     kernels.check_launch(rc, "ball_stats")
-    ball_stats.launches += 1
+    kernels.count_launch(ball_stats)
     return counts, sums
 
 

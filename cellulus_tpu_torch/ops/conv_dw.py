@@ -106,7 +106,7 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             B, H, W, Ci, Co, splits, _DTYPE_CODES[x.dtype], stream,
         )
     kernels.check_launch(rc, "conv3x3_dw")
-    conv3x3_dw.launches += 1
+    kernels.count_launch(conv3x3_dw)
     return out
 
 

@@ -260,7 +260,7 @@ def conv_pass_2d(
                 B, H, W, c_in, c_out, tile, tile, _DTYPE_CODES[compute_dtype], stream,
             )
     kernels.check_launch(rc, "conv_pass_2d")
-    conv_pass_2d.launches += 1
+    kernels.count_launch(conv_pass_2d)
     return out
 
 

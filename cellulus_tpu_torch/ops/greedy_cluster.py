@@ -21,11 +21,14 @@ on the device: once it fails, the remaining iterations of a batch change
 nothing, which is the while loop bit for bit. The host reads a done flag
 once a batch, not once an iteration. On CUDA one batch is captured as a
 CUDA graph (after one warm-up iteration) and replayed; on the CPU the same
-steps run eagerly.
+steps run eagerly. Captures take a process-wide lock and the
+``"thread_local"`` capture mode, so greedy runs in the pipelined path's
+worker threads while predict keeps launching in the calling thread.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -35,6 +38,7 @@ from .mean_shift import add_coordinate_grid
 
 # iterations per batch: the host reads the done flag once per batch
 ITERATIONS_PER_BATCH = 64
+_CAPTURE_LOCK = threading.Lock()
 
 
 class _Loop:
@@ -172,7 +176,10 @@ def greedy_cluster(
             loop.step()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # one capture at a time in the process (the pipelined path runs
+        # detect in worker threads); "thread_local" lets the other threads
+        # (predict's tile batches) allocate and sync while this one captures
+        with _CAPTURE_LOCK, torch.cuda.graph(graph, capture_error_mode="thread_local"):
             loop.batch(n)
         loop.reset()
         run = graph.replay

@@ -35,6 +35,7 @@ import torch
 
 from .ball_stats import point_set
 from .mean_shift_fit import mean_shift_fit
+from ..utils.profiling import time_device
 
 
 def bin_seeds(X: np.ndarray, bin_size: float, min_bin_freq: int = 1) -> np.ndarray:
@@ -137,11 +138,12 @@ def mean_shift_fit_predict(
         return np.full((n,), -1, np.int32)
 
     dev = torch.device(device)
-    centers, n_final = launch_fit(
-        torch.from_numpy(np.ascontiguousarray(X_fit)).to(dev), seeds, bandwidth, max_iter)
+    centers, n_final = time_device(
+        "detect.device", launch_fit, torch.from_numpy(np.ascontiguousarray(X_fit)).to(dev),
+        seeds, bandwidth, max_iter)
     bw2 = fit_thresholds(bandwidth)[0]
     kept = _dedupe(centers, n_final, bw2)
-    labels = _predict(torch.from_numpy(X).to(dev), kept, bw2)
+    labels = time_device("detect.device", _predict, torch.from_numpy(X).to(dev), kept, bw2)
     return labels.cpu().numpy().astype(np.int32)
 
 
@@ -170,13 +172,15 @@ def mean_shift_sweep_fit_predict(
     X_fit_t = torch.from_numpy(np.ascontiguousarray(X_fit)).to(dev)
     X_t = torch.from_numpy(X).to(dev)
     seeds = [torch.from_numpy(bin_seeds(X_fit, bin_size=b)).to(dev) for b in bandwidths]
-    fits = [launch_fit(X_fit_t, s, b, max_iter) if len(s) else None
-            for s, b in zip(seeds, bandwidths)]
+    fits = time_device("detect.device", lambda: [
+        launch_fit(X_fit_t, s, b, max_iter) if len(s) else None
+        for s, b in zip(seeds, bandwidths)])
     labels = np.full((len(bandwidths), n), -1, np.int32)
     for k, (b, fit) in enumerate(zip(bandwidths, fits)):
         if fit is not None:
             bw2 = fit_thresholds(b)[0]
-            labels[k] = _predict(X_t, _dedupe(*fit, bw2), bw2).cpu().numpy()
+            kept = _dedupe(*fit, bw2)
+            labels[k] = time_device("detect.device", _predict, X_t, kept, bw2).cpu().numpy()
     return labels
 
 

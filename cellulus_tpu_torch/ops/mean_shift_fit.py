@@ -139,7 +139,7 @@ def mean_shift_fit(
             frozen.data_ptr(), n_iter.data_ptr(), stream,
         )
     kernels.check_launch(rc, "mean_shift_fit")
-    mean_shift_fit.launches += 1
+    kernels.count_launch(mean_shift_fit)
     return centers, n_final, frozen, n_iter
 
 

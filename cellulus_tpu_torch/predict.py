@@ -24,6 +24,7 @@ from .io.meta_data import spatial_attrs
 from .io.regions import read_reflect_region
 from .models import UNet, compute_geometry, tta_embeddings
 from .utils.device import seeded_generator
+from .utils.profiling import time_device
 
 
 def tile_origins(extent: int, tile: int) -> List[int]:
@@ -34,6 +35,19 @@ def tile_origins(extent: int, tile: int) -> List[int]:
     origins = list(range(0, extent - tile, tile))
     origins.append(extent - tile)
     return origins
+
+
+def _fetch(out: torch.Tensor) -> torch.Tensor:
+    """``out`` on the host. From the card through a pinned buffer, copied
+    asynchronously, then a wait on the stream: a copy into pageable memory
+    blocks every other thread's CUDA calls (the pipelined path's stage
+    workers) for as long as it waits for the stream."""
+    if out.device.type != "cuda":
+        return out
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    torch.cuda.current_stream(out.device).synchronize()
+    return host
 
 
 def predict_sample(
@@ -81,15 +95,20 @@ def predict_sample(
         )
         return np.moveaxis(region * normalization_factor, 0, -1)
 
-    for start in range(0, len(origins), tb):
-        batch = origins[start : start + tb]
-        tiles = torch.from_numpy(np.stack([read(o) for o in batch]).astype(np.float32)).to(device)
+    def run_batch(host_tiles):
+        tiles = torch.from_numpy(host_tiles).to(device)
         uniform = torch.rand(
             (2 * nii, *tiles.shape), generator=gen, device=device, dtype=torch.float32
         )
         with torch.no_grad():
-            out = tta_embeddings(model, tiles, uniform, p, nii, compute_dtype)
-        out = np.moveaxis(out.to(transfer_dtype).cpu().numpy(), -1, 1)  # (T, D + 1, *out_tile)
+            return tta_embeddings(model, tiles, uniform, p, nii, compute_dtype)
+
+    for start in range(0, len(origins), tb):
+        batch = origins[start : start + tb]
+        host_tiles = np.stack([read(o) for o in batch]).astype(np.float32)
+        # the upload and the forward; not the fetch below
+        out = time_device("predict.device", run_batch, host_tiles)
+        out = np.moveaxis(_fetch(out.to(transfer_dtype)).numpy(), -1, 1)  # (T, D + 1, *out_tile)
         for tile_out, origin in zip(out, batch):
             sel = tuple(slice(o, min(o + t, s)) for o, t, s in zip(origin, out_tile, spatial))
             crop = tuple(slice(0, sl.stop - sl.start) for sl in sel)

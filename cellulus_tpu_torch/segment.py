@@ -32,6 +32,7 @@ from .ops.morphology import halo_removal
 from .ops.nucleus import nucleus_partition_device
 from .ops.otsu import threshold_otsu
 from .utils.env import resolve_flag
+from .utils.profiling import time_device
 
 
 def want_device_nucleus(inference_config: InferenceConfig) -> bool:
@@ -57,7 +58,12 @@ def _to_device(array: np.ndarray, dtype, device) -> torch.Tensor:
 def _size_filter(labels: torch.Tensor, min_size: int, dtype) -> np.ndarray:
     """The size filter on the labels' device; the uint16 labels come down
     and are returned in ``dtype``."""
-    return size_filter_device(labels, int(min_size)).cpu().numpy().astype(dtype, copy=False)
+    return _fetch(time_device("segment.device", size_filter_device, labels, int(min_size)),
+                  dtype)
+
+
+def _fetch(labels: torch.Tensor, dtype) -> np.ndarray:
+    return labels.cpu().numpy().astype(dtype, copy=False)
 
 
 def cell_segment_sample(
@@ -72,9 +78,13 @@ def cell_segment_sample(
     (``cellulus_tpu/segment.py:cell_segment_sample``): uint16 detections go
     up, uint16 labels come down, returned in the input's dtype."""
     _check_uint16_range(segmentation)
-    seg = halo_removal(_to_device(segmentation, np.int32, device), float(grow_distance),
-                       float(shrink_distance))
-    return _size_filter(seg, min_size, segmentation.dtype)
+
+    def run(seg):
+        seg = halo_removal(seg, float(grow_distance), float(shrink_distance))
+        return size_filter_device(seg, int(min_size))
+
+    labels = time_device("segment.device", run, _to_device(segmentation, np.int32, device))
+    return _fetch(labels, segmentation.dtype)
 
 
 def nucleus_segment_sample(segmentation: np.ndarray, raw_image: np.ndarray, min_size: int,
@@ -83,9 +93,13 @@ def nucleus_segment_sample(segmentation: np.ndarray, raw_image: np.ndarray, min_
     of one label image on ``device``, as the JAX package's device path
     (``cellulus_tpu/segment.py:255-263``)."""
     _check_uint16_range(segmentation)
-    partition = nucleus_partition_device(_to_device(segmentation, np.int32, device),
-                                         _to_device(raw_image, np.float32, device))
-    return _size_filter(partition, min_size, segmentation.dtype)
+
+    def run(seg, raw):
+        return size_filter_device(nucleus_partition_device(seg, raw), int(min_size))
+
+    labels = time_device("segment.device", run, _to_device(segmentation, np.int32, device),
+                         _to_device(raw_image, np.float32, device))
+    return _fetch(labels, segmentation.dtype)
 
 
 def nucleus_partition(segmentation: np.ndarray, raw_image: np.ndarray) -> np.ndarray:
@@ -116,10 +130,27 @@ def nucleus_partition(segmentation: np.ndarray, raw_image: np.ndarray) -> np.nda
     return out
 
 
+def segment_sample(detections: np.ndarray, raw_image, inference_config: InferenceConfig,
+                   device) -> np.ndarray:
+    """One bandwidth's detections of one sample -> uint16 instances, by the
+    configured post-processing (``raw_image``: the sample's raw channel 0,
+    read in "nucleus" mode only). The segment stage and the pipelined path
+    both call it."""
+    ic = inference_config
+    if ic.post_processing == "cell":
+        seg = cell_segment_sample(detections, ic.grow_distance, ic.shrink_distance,
+                                  ic.min_size, device)
+    elif want_device_nucleus(ic):
+        seg = nucleus_segment_sample(detections, raw_image, ic.min_size, device)
+    else:
+        seg = _size_filter(_to_device(nucleus_partition(detections, raw_image), np.int32,
+                                      device), ic.min_size, np.uint16)
+    return seg.astype(np.uint16)
+
+
 def segment(inference_config: InferenceConfig, device) -> None:
     ic = inference_config
     nucleus = ic.post_processing == "nucleus"
-    device_nucleus = nucleus and want_device_nucleus(ic)
     meta = DatasetMetaData.from_dataset_config(ic.dataset_config)
     f = zarr.open(ic.segmentation_dataset_config.container_path, "a")
     ds_in = f[ic.segmentation_dataset_config.secondary_dataset_name]
@@ -138,13 +169,5 @@ def segment(inference_config: InferenceConfig, device) -> None:
     for sample in range(meta.num_samples):
         raw_image = np.asarray(ds_raw[sample, 0]) if nucleus else None
         for k in range(ic.num_bandwidths):
-            detections = np.asarray(ds_in[sample, k])
-            if device_nucleus:
-                seg = nucleus_segment_sample(detections, raw_image, ic.min_size, device)
-            elif nucleus:
-                seg = _size_filter(_to_device(nucleus_partition(detections, raw_image),
-                                              np.int32, device), ic.min_size, np.uint16)
-            else:
-                seg = cell_segment_sample(detections, ic.grow_distance, ic.shrink_distance,
-                                          ic.min_size, device)
-            ds_out[sample, k] = seg.astype(np.uint16)
+            ds_out[sample, k] = segment_sample(np.asarray(ds_in[sample, k]), raw_image, ic,
+                                               device)

@@ -842,7 +842,8 @@ def train(experiment_config: ExperimentConfig,
     def consume(entry):
         nonlocal epoch_loss, num_iterations
         it, loss_t, oce_t = entry[:3]
-        loss_f, oce_f = float(loss_t), float(oce_t)
+        with torch.profiler.record_function("train: loss fetch"):
+            loss_f, oce_f = float(loss_t), float(oce_t)
         if step_times is not None:
             step_times.append(time.perf_counter())
         print(f"===> iteration: {it}, loss: {loss_f:.6f}, oce loss: {oce_f:.6f}")
@@ -973,7 +974,9 @@ def train(experiment_config: ExperimentConfig,
             iteration = run_chunks(batches)
         else:
             for iteration in range(start_iteration, train_config.max_iterations):
-                batch = next(batches)
+                # a named span for a profiler trace of the loop (cheap without one)
+                with torch.profiler.record_function("train: next batch"):
+                    batch = next(batches)
                 raw_np = batch[0]
                 raw = to_device(raw_np)
                 if key_driven:

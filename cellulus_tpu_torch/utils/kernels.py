@@ -39,6 +39,7 @@ BUILD_LOG: Dict[str, str] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -105,6 +106,13 @@ def load(name: str, signatures: Dict[str, Tuple[Sequence, object]]) -> ctypes.CD
                 getattr(lib, fn).restype = restype
             _libs[name] = lib
         return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of its kernel's launches;
+    a lock makes it safe in the pipelined path's worker threads."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check_launch(rc: int, what: str) -> None:

@@ -44,9 +44,21 @@ Phases, each failing the run (non-zero exit) if it fails:
    mean shift, the bandwidth sweep and device detect on the bf16 run's
    embeddings, card against CPU (differences only where rounding explains
    them), seconds a sample, fit launches, each new path's fit timed;
-   ``[wide-main]``: ``cellulus_tpu_torch.infer`` at
-   ``examples/real-data/infer.toml``'s model and settings on one 512^2
-   sample (bf16, pipelined off), K1 launched 9 times;
+   ``[wide-main]``: ``cellulus_tpu_torch.infer`` on
+   ``examples/real-data/infer.toml`` as written (256 fmaps, bf16,
+   ``pipelined = true``) on four 512^2 samples, then staged on the same
+   inputs: the five stage datasets bit-equal, some sample's detect+segment
+   (a worker thread) overlapping a later sample's predict (the calling
+   thread), the pipelined wall time against the staged sum, K1 and the fit
+   launched four times one sample's count on each path; ``[trace]``: (a)
+   the 2D main path pipelined (examples/2d's model, f32, 4 x 512^2) under
+   ``CELLULUS_TPU_PROFILE`` and ``CELLULUS_TPU_DEVICE_TIMERS=1``, the
+   ``{predict,detect,segment}.device`` sums, the ten device ops that took
+   most time, the device's idle share, K1's and the fit kernel's symbols in
+   the trace, then staged with timers on (detect's host share); (b) 20
+   steps of ``train()`` at examples/2d/train.toml's settings inside
+   ``torch.profiler``: the device's idle share over the steady steps, the
+   training thread's spans and the longest device-idle stretches;
 9. the train main path: ``cellulus_tpu_torch.train`` at the full width of
    ``examples/2d/train.toml`` (bf16, elastic on, device pairs) for 20 steps,
    K2 launched 6 times a step, a resume, 3 float32 steps, then infer on the
@@ -91,7 +103,8 @@ Phases, each failing the run (non-zero exit) if it fails:
 14. ``[3d-greedy]``: ``examples/3d/infer.toml`` as it is (greedy clustering)
     on the bf16 3D embeddings through detect, segment and evaluate, greedy's
     iterations, host syncs and seconds a sample, and a 48^3 crop card
-    against CPU;
+    against CPU; ``[pipelined-greedy]``: its settings pipelined on the
+    [3d-train] container (predict included), equal to the staged run;
 15. ``[3d-elastic]``: tests/test_quality_3d_gate.py's bundle as written
     (the warp on the card, device pairs, all_dims, 60 steps), its losses
     and the pipeline on its checkpoint, and the warp for given parameters,
@@ -100,10 +113,14 @@ Phases, each failing the run (non-zero exit) if it fails:
     the card (``device_nucleus``) and cell mode against the vendored silver
     truth, nucleus F1 >= 0.8 and above cell mode's, the device partition
     equal to the host's but at nested instances and moved thresholds;
+    ``[sweep]``: ``checkpoint_sweep`` (pipelined, nucleus) over the
+    checkpoints [hela] left and a truncated copy: an error row for the copy,
+    best_loss.pth's row equal to [hela]'s nucleus F1 and SEG;
 16. the kernels line (JSON, one row per kernel and input type; K1 at both
-    widths; K2's launches by path, ``[spd]``'s graphed runs counted as
-    warm-up launches plus captured calls times replays; the fit at d = 2
-    and d = 3 and on each new detect path), then the last line
+    widths, with its launches by path (main, pipelined, sweep); K2's
+    launches by path, ``[spd]``'s graphed runs counted as warm-up launches
+    plus captured calls times replays; the fit at d = 2 and d = 3 with its
+    launches by path and on each new detect path), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Needs CUDA: without it the script exits non-zero and prints no result.
@@ -154,6 +171,7 @@ from cellulus_tpu_torch.train import (
 from cellulus_tpu_torch.models import UNet, compute_geometry
 from cellulus_tpu_torch.models.geometry import conv_pass_inputs
 from cellulus_tpu_torch.detect import detect_sample, mean_center_embeddings, sample_rng
+from cellulus_tpu_torch.infer import PIPELINED_STAGE, checkpoint_sweep
 from cellulus_tpu_torch.ops import mean_shift as msops
 from cellulus_tpu_torch.ops.ball_stats import ball_stats, ball_stats_plain, point_set
 from cellulus_tpu_torch.ops.conv_dw import conv3x3_dw, conv3x3_dw_design, conv3x3_dw_plain
@@ -179,6 +197,7 @@ from cellulus_tpu_torch.ops.otsu import threshold_otsu
 from cellulus_tpu_torch.predict import tile_origins
 from cellulus_tpu_torch.segment import cell_segment_sample, nucleus_partition
 from cellulus_tpu_torch.utils import kernels
+from cellulus_tpu_torch.utils.profiling import perf_report, reset_perf
 
 # H100 SXM published peaks (dense): HBM bytes/s; the least time of K1 and
 # K2 takes the tensor cores' rate of each input type: bfloat16 989 TFLOP/s,
@@ -2106,61 +2125,170 @@ def phase_hela(work):
     print(f"[hela] device vs host nucleus partition per bandwidth [differing pixels, nested "
           f"instances, instances whose card threshold is not the host's]: {counts} (nothing "
           f"else differs)", flush=True)
+    return r
+
+
+STAGE_OUTPUTS = ("embeddings", "detection", "binary-segmentation", "centered-embeddings",
+                 "segmentation")
+WIDE_SAMPLES = 4
+
+
+def _route(ic, container, out):
+    """Raw data from ``container``'s ``raw``; every stage's output to ``out``."""
+    ic.dataset_config.container_path, ic.dataset_config.dataset_name = container, "raw"
+    for dc in (ic.prediction_dataset_config, ic.detection_dataset_config,
+               ic.segmentation_dataset_config, ic.evaluation_dataset_config):
+        if dc is not None:
+            dc.container_path = out
+
+
+def _stage_groundtruth(container, out):
+    src = zarr.open(container, "r")["groundtruth"]
+    dst = zarr.open(out, "a")
+    dst["groundtruth"] = src[...]
+    dst["groundtruth"].attrs.update(src.attrs.asdict())
+
+
+def _differing_outputs(a, b):
+    """The stage datasets that differ between containers ``a`` and ``b``,
+    with the largest difference of each."""
+    fa, fb = zarr.open(a, "r"), zarr.open(b, "r")
+    out = {}
+    for name in STAGE_OUTPUTS:
+        x, y = fa[name][...], fb[name][...]
+        if x.shape != y.shape or not np.array_equal(x, y):
+            out[name] = (float(np.abs(x.astype(np.float64) - y).max())
+                         if x.shape == y.shape else f"shapes {x.shape} {y.shape}")
+    return out
+
+
+def _run_both_paths(config, work, name, container, launched=(),
+                    modes=("pipelined", "staged")):
+    """``cellulus_tpu_torch.infer`` by each of ``modes`` in turn
+    (``"pipelined"``, ``"staged"``, or ``"pipelined again"``) on the same
+    inputs (outputs in ``<name>-<mode>.zarr``, ground truth staged in when
+    the config evaluates), each with the kernel counts of ``launched`` set
+    to 0 just before it. Returns per mode its results, stage seconds, wall
+    time, sample intervals and launches."""
+    import copy
+
+    runs = {}
+    for mode in modes:
+        cfg = copy.deepcopy(config)
+        ic = cfg.inference_config
+        ic.pipelined = mode.startswith("pipelined")
+        out = os.path.join(work, f"{name}-{mode.replace(' ', '-')}.zarr")
+        _route(ic, container, out)
+        if ic.evaluation_dataset_config is not None:
+            _stage_groundtruth(container, out)
+        for fn in launched:
+            fn.launches = 0
+        stage_seconds, intervals = {}, {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.chdir(work), logged(os.path.join(work, f"{name}-{mode}.log")):
+            results = cellulus_tpu_torch.infer(cfg, stage_seconds, intervals)
+        torch.cuda.synchronize()
+        runs[mode] = dict(results=results, seconds=stage_seconds, wall=time.perf_counter() - t0,
+                          intervals=intervals, out=out,
+                          launches={fn.__name__: fn.launches for fn in launched})
+    return runs
+
+
+def _overlaps(intervals):
+    """``(s, t)`` where sample s's detect+segment (worker) overlaps the
+    predict of a later sample t (calling thread)."""
+    pairs = []
+    for s, (d0, _) in intervals["detect"].items():
+        g1 = intervals["segment"][s][1]
+        for t, (p0, p1) in intervals["predict"].items():
+            if t > s and d0 < p1 and p0 < g1:
+                pairs.append((s, t))
+    return pairs
+
+
+def _interval_table(intervals):
+    """Each sample's predict and detect+segment intervals (s) from the first
+    predict's start."""
+    origin = min(p0 for p0, _ in intervals["predict"].values())
+    rows = []
+    for s in sorted(intervals["predict"]):
+        p0, p1 = intervals["predict"][s]
+        d0, g1 = intervals["detect"][s][0], intervals["segment"][s][1]
+        rows.append(f"{s}: predict {p0 - origin:.3f}-{p1 - origin:.3f}, detect+segment "
+                    f"{d0 - origin:.3f}-{g1 - origin:.3f}")
+    return "; ".join(rows)
 
 
 def phase_wide_main(work):
-    """The model of examples/real-data/infer.toml (256 fmaps, factor 3) with
-    its inference settings (bf16, crop 252, tile batch 4) through
-    ``cellulus_tpu_torch.infer`` on one synthetic 512^2 sample, seeded
-    weights, ``pipelined`` off (pipelined inference is not ported): K1 runs
-    every pass, the bottom one (256 -> 768) by its staged route. Returns the
+    """``[wide-main]``: examples/real-data/infer.toml as written (256 fmaps,
+    factor 3, bf16, crop 252, tile batch 4, ``pipelined = true``; only the
+    checkpoint, the datasets and the device are set) on WIDE_SAMPLES
+    synthetic 512^2 samples with seeded weights, then the staged path on the
+    same inputs: the five stage datasets bit-equal, some sample's
+    detect+segment (a worker) overlapping a later sample's predict (the
+    calling thread), K1 and fit launches WIDE_SAMPLES times one sample's
+    (K1 every pass, the bottom one by its staged route). Returns each path's
     launches."""
     wide = os.path.join(work, "wide")
     os.makedirs(wide)
-    container = write_blob_container(os.path.join(wide, "data.zarr"), 1, IMAGE_SIZE, seed=15)
+    container = write_blob_container(os.path.join(wide, "data.zarr"), WIDE_SAMPLES, IMAGE_SIZE,
+                                     seed=15)
     checkpoint = os.path.join(wide, "weights.pth")
     save_random_checkpoint(checkpoint, seed=16, **MODEL_WIDE)
     config = ExperimentConfig.from_toml(os.path.join(REPO, "examples", "real-data", "infer.toml"))
     mc, ic = config.model_config, config.inference_config
     if ({k: getattr(mc, k) for k in MODEL_WIDE} != MODEL_WIDE or ic.precision != "bfloat16"
-            or ic.crop_size != [CROP, CROP] or ic.tile_batch_size != TILE_BATCH):
+            or ic.crop_size != [CROP, CROP] or ic.tile_batch_size != TILE_BATCH
+            or not ic.pipelined):
         fail("examples/real-data/infer.toml differs from the settings this script assumes")
     mc.checkpoint = checkpoint
-    ic.pipelined = False
     ic.device = DEVICE
-    for dc, name in ((ic.dataset_config, "raw"), (ic.prediction_dataset_config, "embeddings"),
-                     (ic.detection_dataset_config, "detection"),
-                     (ic.segmentation_dataset_config, "segmentation")):
-        dc.container_path, dc.dataset_name = container, name
-    conv_pass_2d.launches = mean_shift_fit.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    stage_seconds = {}
-    t0 = time.perf_counter()
-    with contextlib.chdir(wide), logged(os.path.join(wide, "infer.log")):
-        cellulus_tpu_torch.infer(config, stage_seconds)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"conv_pass_2d": conv_pass_2d.launches, "mean_shift_fit": mean_shift_fit.launches}
-    f = zarr.open(container, "r")
+    # pipelined, staged, pipelined again: the first run pays the stage
+    # workers' first CUDA calls in new threads, the second is warm as the
+    # staged run is
+    runs = _run_both_paths(config, wide, "wide", container, (conv_pass_2d, mean_shift_fit),
+                           modes=("pipelined", "staged", "pipelined again"))
+    piped, staged, again = runs["pipelined"], runs["staged"], runs["pipelined again"]
+    for run in (piped, again):
+        differing = _differing_outputs(run["out"], staged["out"])
+        if differing:
+            fail(f"[wide-main] pipelined and staged outputs differ (dataset: max abs "
+                 f"difference) {differing}")
+    f = zarr.open(piped["out"], "r")
     emb, seg = f["embeddings"][...], f["segmentation"][...]
-    if emb.shape != (1, 3, IMAGE_SIZE, IMAGE_SIZE) or not np.isfinite(emb).all():
+    if emb.shape != (WIDE_SAMPLES, 3, IMAGE_SIZE, IMAGE_SIZE) or not np.isfinite(emb).all():
         fail(f"[wide-main]: embeddings {emb.shape}, finite={np.isfinite(emb).all()}")
-    if seg.shape != (1, 1, IMAGE_SIZE, IMAGE_SIZE):
+    if seg.shape != (WIDE_SAMPLES, 1, IMAGE_SIZE, IMAGE_SIZE):
         fail(f"[wide-main]: segmentation shape {seg.shape}")
     out_tile = compute_geometry((CROP, CROP), MODEL_WIDE["downsampling_factors"]).output_size
     tiles = math.prod(len(tile_origins(max(IMAGE_SIZE, o), o)) for o in out_tile)
-    expected = 3 * math.ceil(tiles / TILE_BATCH)  # 3 passes per tile batch
-    if launches != {"conv_pass_2d": expected, "mean_shift_fit": 1}:
-        fail(f"[wide-main]: launches {launches}, expected {expected} K1 and 1 fit")
+    expected = {"conv_pass_2d": WIDE_SAMPLES * 3 * math.ceil(tiles / TILE_BATCH),
+                "mean_shift_fit": WIDE_SAMPLES}  # 3 passes a tile batch, 1 fit a sample
+    for mode, run in runs.items():
+        if run["launches"] != expected:
+            fail(f"[wide-main] {mode}: launches {run['launches']}, expected {expected}")
+    overlaps = _overlaps(piped["intervals"])
+    for label, run in (("pipelined", piped), ("pipelined again", again)):
+        print(f"[wide-main] {label}, per sample on one host clock (s): "
+              f"{_interval_table(run['intervals'])}", flush=True)
+    if not overlaps:
+        fail("[wide-main] no sample's detect+segment overlapped a later sample's predict")
     plans = [f"{name} {conv_pass.conv_pass_2d_plan(shape, c, torch.bfloat16)}"
              for name, shape, c in pass_shapes(TILE_BATCH * 2 * NUM_INFER_ITERATIONS, MODEL_WIDE)]
-    print(f"[wide-main] examples/real-data/infer.toml's model and settings (bf16, pipelined "
-          f"off) on 1 x {IMAGE_SIZE}^2: stages (s) "
-          f"{json.dumps({k: round(v, 3) for k, v in stage_seconds.items()})}, total {wall:.2f}s; "
-          f"K1 plans {plans}; launches {json.dumps(launches)}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
-          f"{int(len(np.unique(seg)) - 1)} instances", flush=True)
-    return launches
+    staged_sum = sum(staged["seconds"][k] for k in ("predict", "detect", "segment"))
+    print(f"[wide-main] examples/real-data/infer.toml as written (bf16, pipelined) on "
+          f"{WIDE_SAMPLES} x {IMAGE_SIZE}^2: predict+detect+segment pipelined "
+          f"{piped['seconds'][PIPELINED_STAGE]:.3f}s, again "
+          f"{again['seconds'][PIPELINED_STAGE]:.3f}s, against the staged stages' sum "
+          f"{staged_sum:.3f}s "
+          f"({json.dumps({k: round(v, 3) for k, v in staged['seconds'].items()})}); the five "
+          f"datasets bit-equal; detect+segment of sample s overlaps predict of sample t at "
+          f"(s, t) {overlaps}; K1 plans {plans}; launches a path {json.dumps(piped['launches'])}"
+          f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+          f"{int(len(np.unique(seg[0])) - 1)} instances in sample 0", flush=True)
+    return {mode: run["launches"] for mode, run in runs.items()}
 
 
 # -- the detect variants ---------------------------------------------------------------
@@ -2639,6 +2767,327 @@ def phase_3d_greedy(work, container, checkpoint):
           f"{ref['iterations']} iterations)", flush=True)
 
 
+def phase_pipelined_greedy(work, container, checkpoint):
+    """``[pipelined-greedy]``: examples/3d/infer.toml's settings (greedy,
+    bf16) pipelined on the [3d-train] container (2 x 128^3), then staged on
+    the same inputs: the five stage datasets and the scores equal. Greedy's
+    CUDA-graph capture runs in a stage worker while the calling thread
+    predicts the next sample."""
+    config = ExperimentConfig.from_toml(os.path.join(REPO, "examples", "3d", "infer.toml"))
+    ic = config.inference_config
+    if ic.clustering != "greedy" or config.object_size != OBJECT_SIZE_3D:
+        fail("examples/3d/infer.toml differs from the settings this script assumes")
+    config.model_config.checkpoint = checkpoint
+    ic.device = DEVICE
+    runs = _run_both_paths(config, work, "pgreedy", container, (mean_shift_fit,))
+    piped, staged = runs["pipelined"], runs["staged"]
+    differing = _differing_outputs(piped["out"], staged["out"])
+    if differing:
+        fail(f"[pipelined-greedy] pipelined and staged outputs differ {differing}")
+    if piped["results"] != staged["results"]:
+        fail(f"[pipelined-greedy] scores {piped['results']} vs {staged['results']}")
+    if any(run["launches"]["mean_shift_fit"] for run in runs.values()):
+        fail(f"[pipelined-greedy] greedy launched the fit kernel: {runs}")
+    staged_sum = sum(staged["seconds"][k] for k in ("predict", "detect", "segment"))
+    print(f"[pipelined-greedy] examples/3d/infer.toml (greedy, bf16) pipelined on 2 x "
+          f"{VOLUME_SIZE}^3: the five datasets and F1 {piped['results'][0]['F1']:.4f} SEG "
+          f"{piped['results'][0]['SEG']:.4f} equal the staged run's; pipelined "
+          f"{piped['seconds'][PIPELINED_STAGE]:.3f}s against the staged sum {staged_sum:.3f}s; "
+          f"per sample (s): {_interval_table(piped['intervals'])}; overlaps (s, t) "
+          f"{_overlaps(piped['intervals'])}", flush=True)
+
+
+SWEEP_TRUNCATED = "007500.pth"
+
+
+def phase_sweep(work, hela_result):
+    """``[sweep]``: ``checkpoint_sweep`` over the checkpoints [hela] left
+    (000000.pth, the untrained control, 002500.pth, 004999.pth, the last
+    step's, and best_loss.pth) plus a
+    truncated copy of best_loss.pth as a numbered fourth candidate, against
+    the silver truth, nucleus mode, ``pipelined = true``. The truncated one
+    gives an error row while the others score, and best_loss.pth's row
+    equals [hela]'s nucleus F1 and SEG (rounded to 4 places, as the sweep
+    rounds). Returns the sweep's launches."""
+    import shutil
+    from pathlib import Path
+
+    hela = _load_script("torch_real_hela")
+    hela_dir = Path(work) / "hela"
+    models = Path(work) / "sweep_models"
+    models.mkdir()
+    for p in sorted((hela_dir / "models").glob("*.pth")):
+        shutil.copy2(p, models / p.name)
+    left = sorted(p.name for p in models.iterdir())
+    if "000000.pth" not in left or "best_loss.pth" not in left or len(left) < 3:
+        fail(f"[sweep] [hela] left {left}")
+    data = (models / "best_loss.pth").read_bytes()
+    (models / SWEEP_TRUNCATED).write_bytes(data[: len(data) // 2])
+    config = hela.hela_config(hela_dir, HELA_STEPS, DEVICE)
+    config.inference_config.pipelined = True
+    conv_pass_2d.launches = mean_shift_fit.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.chdir(hela_dir), logged(os.path.join(work, "sweep.log")):
+        rows = checkpoint_sweep(config, checkpoint_dir=models)
+    seconds = time.perf_counter() - t0
+    launches = {"conv_pass_2d": conv_pass_2d.launches, "mean_shift_fit": mean_shift_fit.launches}
+    selected = json.loads((models / "checkpoint_sweep.json").read_text())["selected"]
+    if "error" not in rows.get(SWEEP_TRUNCATED, {}):
+        fail(f"[sweep] the truncated checkpoint scored: {rows.get(SWEEP_TRUNCATED)}")
+    scored = [name for name, row in rows.items() if "F1" in row]
+    if sorted(scored) != sorted(set(rows) - {SWEEP_TRUNCATED}):
+        fail(f"[sweep] rows {rows}")
+    nucleus = hela_result["nucleus"]
+    best = rows["best_loss.pth"]
+    if (best["F1"], best["SEG"]) != (round(nucleus["F1"], 4), round(nucleus["SEG"], 4)):
+        fail(f"[sweep] best_loss.pth scores F1 {best['F1']} SEG {best['SEG']}, [hela] "
+             f"{nucleus['F1']:.4f} / {nucleus['SEG']:.4f}")
+    if not all(launches.values()):
+        fail(f"[sweep] launches {launches}")
+    print(f"[sweep] checkpoint_sweep over [hela]'s checkpoints + a truncated {SWEEP_TRUNCATED} "
+          f"(nucleus, pipelined) in {seconds:.1f}s: "
+          + "; ".join(f"{name} " + (f"F1 {row['F1']:.4f} SEG {row['SEG']:.4f} (bandwidth "
+                                    f"{row['bandwidth_index']})" if "F1" in row else "error")
+                      for name, row in rows.items())
+          + f"; selected {selected}; best_loss.pth equals [hela]'s nucleus scores; launches "
+          f"{json.dumps(launches)}", flush=True)
+    return launches
+
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_events(path):
+    """The complete events (``ph == "X"``) of a ``torch.profiler`` Chrome trace."""
+    with open(path) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+
+
+def trace_summary(events, host_tid=None, top=10, gaps=5, window=None):
+    """Of a Chrome trace's events within ``window`` (µs; first to last event
+    if None): its length (ms), the device's busy time (kernels, copies and
+    sets merged over streams) and idle share of it, the ``top`` device ops
+    by total time, and the ``gaps`` longest stretches with nothing on the
+    device, each with the innermost host events of thread ``host_tid`` (any
+    thread if None) running at its middle."""
+    t0, t1 = window or (min(e["ts"] for e in events), max(e["ts"] + e["dur"] for e in events))
+    device = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1), e) for e in events
+                    if e.get("cat") in DEVICE_CATEGORIES and e["ts"] < t1
+                    and e["ts"] + e["dur"] > t0)
+    merged = []
+    for start, end, _ in device:
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    busy = sum(end - start for start, end in merged)
+    edges = [t0] + [x for interval in merged for x in interval] + [t1]
+    idle = sorted(((edges[i + 1] - edges[i], edges[i]) for i in range(0, len(edges), 2)),
+                  reverse=True)[:gaps]
+    by_name = {}
+    for start, end, e in device:
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + (end - start) / 1e3, n + 1)
+    host = [e for e in events if e.get("cat") not in DEVICE_CATEGORIES
+            and (host_tid is None or e.get("tid") == host_tid)]
+    gap_rows = []
+    for dur, start in idle:
+        mid = start + dur / 2
+        inner = sorted((e for e in host if e["ts"] <= mid <= e["ts"] + e["dur"]),
+                       key=lambda e: e["dur"])
+        gap_rows.append({"ms": dur / 1e3, "at_ms": (start - t0) / 1e3,
+                         "host": [e["name"][:60] for e in inner[:3]] or ["(no op recorded)"]})
+    return {"window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / max(t1 - t0, 1e-9),
+            "top": sorted(((n[:90], ms, c) for n, (ms, c) in by_name.items()),
+                          key=lambda r: -r[1])[:top],
+            "gaps": gap_rows, "names": set(by_name)}
+
+
+def host_self_ms(events, main_tid, window, top=12):
+    """Self time (ms) by thread and name of the host events that start in
+    ``window``: each event's duration less its direct children's. Threads
+    are named ``main`` (``main_tid``) or by their order of appearance (the
+    autograd engine runs a CUDA backward on a thread of its own)."""
+    threads, totals = {main_tid: "main"}, {}
+    for tid in sorted({e.get("tid") for e in events if e.get("cat") not in DEVICE_CATEGORIES},
+                      key=str):
+        threads.setdefault(tid, f"thread {len(threads)}")
+    for tid, label in threads.items():
+        host = sorted((e for e in events if e.get("tid") == tid
+                       and e.get("cat") not in DEVICE_CATEGORIES
+                       and window[0] <= e["ts"] < window[1]),
+                      key=lambda e: (e["ts"], -e["dur"]))
+        stack = []
+        for e in host:
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] <= e["ts"]:
+                stack.pop()
+            if stack:
+                parent = (label, stack[-1]["name"][:60])
+                totals[parent] = totals.get(parent, 0.0) - e["dur"] / 1e3
+            key = (label, e["name"][:60])
+            totals[key] = totals.get(key, 0.0) + e["dur"] / 1e3
+            stack.append(e)
+    return sorted(totals.items(), key=lambda kv: -kv[1])[:top]
+
+
+@contextlib.contextmanager
+def _env(**values):
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+TRACE_SAMPLES, TRACE_TRAIN_STEPS = 4, 20
+
+
+def phase_trace(work):
+    """``[trace]``: (a) the 2D main path pipelined (examples/2d's model,
+    float32, TRACE_SAMPLES x 512^2, seeded weights) under
+    ``CELLULUS_TPU_PROFILE`` and ``CELLULUS_TPU_DEVICE_TIMERS=1``: the
+    ``{predict,detect,segment}.device`` sums, detect's host share, the ten
+    device ops that took most time and the device's idle share; the trace
+    must hold K1's and the fit kernel's symbols. (b) TRACE_TRAIN_STEPS steps
+    of ``train()`` at examples/2d/train.toml's settings (bf16, batch 8,
+    crop 252, elastic, device pairs) inside ``torch.profiler``: the device's
+    idle share and the longest stretches with the device idle, with what the
+    training thread ran then. Returns the launches of (a) and K2's of (b)."""
+    import threading
+    from torch._C._profiler import _ExperimentalConfig
+
+    trace = os.path.join(work, "trace")
+    os.makedirs(trace)
+    container = write_blob_container(os.path.join(trace, "data.zarr"), TRACE_SAMPLES,
+                                     IMAGE_SIZE, seed=21)
+    checkpoint = os.path.join(trace, "weights.pth")
+    save_random_checkpoint(checkpoint, seed=22, **MODEL)
+    config = infer_config(container, checkpoint, MODEL, device=DEVICE, pipelined=True)
+    trace_dir = os.path.join(trace, "infer-trace")
+    conv_pass_2d.launches = mean_shift_fit.launches = 0
+    reset_perf()
+    intervals = {}
+    with _env(CELLULUS_TPU_PROFILE=trace_dir, CELLULUS_TPU_DEVICE_TIMERS="1"), \
+            contextlib.chdir(trace), logged(os.path.join(trace, "infer.log")):
+        results = cellulus_tpu_torch.infer(config, None, intervals)
+    launches = {"conv_pass_2d": conv_pass_2d.launches, "mean_shift_fit": mean_shift_fit.launches}
+    report = perf_report()
+    reset_perf()
+    if results is None or not launches["conv_pass_2d"] or launches["mean_shift_fit"] != 4:
+        fail(f"[trace] results {results}, launches {launches}")
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    if len(files) != 1:
+        fail(f"[trace] expected one trace file, found {files}")
+    summary = trace_summary(trace_events(files[0]))
+    k1 = sorted(n for n in summary["names"] if "conv_pass_kernel" in n or "conv_stage_kernel" in n)
+    fit = sorted(n for n in summary["names"] if "mean_shift_fit_kernel" in n)
+    if not k1 or not fit:
+        fail(f"[trace] K1 {k1} or the fit kernel {fit} missing from the trace")
+    sums = {k: round(report[k]["seconds"], 4) for k in
+            ("predict.device", "detect.device", "segment.device") if k in report}
+    if len(sums) != 3:
+        fail(f"[trace] device timers {sorted(report)}")
+    detect_wall = sum(d1 - d0 for d0, d1 in intervals["detect"].values())
+    print(f"[trace] (a) examples/2d's model, f32, pipelined on {TRACE_SAMPLES} x {IMAGE_SIZE}^2, "
+          f"device timers on (they sync each timed call): device sums (s) {json.dumps(sums)}; "
+          f"detect {detect_wall:.4f}s on the host clock, host share "
+          f"{1 - report['detect.device']['seconds'] / detect_wall:.3f}; traced window "
+          f"{summary['window_ms']:.1f} ms, device busy {summary['busy_ms']:.1f} ms, idle share "
+          f"{summary['idle_share']:.3f}; K1 symbols {len(k1)}, fit symbol present", flush=True)
+    print("[trace] (a) top 10 device ops [name, ms, calls]: "
+          + json.dumps([[n, round(ms, 3), c] for n, ms, c in summary["top"]]), flush=True)
+    # the same inputs staged, timers on and no trace: each stage has the card
+    # to itself, so its device sum is not inflated by the other thread's work
+    config.inference_config.pipelined = False
+    reset_perf()
+    staged_seconds = {}
+    with _env(CELLULUS_TPU_DEVICE_TIMERS="1"), contextlib.chdir(trace), \
+            logged(os.path.join(trace, "infer-staged.log")):
+        cellulus_tpu_torch.infer(config, staged_seconds)
+    staged = perf_report()
+    reset_perf()
+    print(f"[trace] (a) staged on the same inputs, timers on, no trace: stage (s) "
+          f"{json.dumps({k: round(v, 4) for k, v in staged_seconds.items()})}, device sums (s) "
+          f"{json.dumps({k: round(staged[k + '.device']['seconds'], 4) for k in ('predict', 'detect', 'segment')})}"
+          f"; detect's host share "
+          f"{1 - staged['detect.device']['seconds'] / staged_seconds['detect']:.3f}, "
+          f"segment's {1 - staged['segment.device']['seconds'] / staged_seconds['segment']:.3f}",
+          flush=True)
+
+    # (b) the train loop, profiled by this script (train() runs no maybe_trace)
+    common = dict(crop_size=[CROP, CROP], batch_size=TRAIN_BATCH, elastic_deform=True,
+                  precision="bfloat16", max_iterations=TRACE_TRAIN_STEPS,
+                  save_best_model_every=10**6, save_model_every=10**6, save_snapshot_every=10**6)
+    train_dir = os.path.join(trace, "train")
+    os.makedirs(train_dir)
+    path = os.path.join(trace, "train-trace.json")
+    step_times = []
+    from torch.profiler import ProfilerActivity, profile
+
+    with contextlib.chdir(train_dir), logged(os.path.join(trace, "train.log")):
+        cfg = train_config(container, MODEL, **common)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+            _, k2_launches = _run_train(cfg, step_times)
+        prof.export_chrome_trace(path)
+    if k2_launches != 6 * TRACE_TRAIN_STEPS:
+        fail(f"[trace] (b) conv3x3_dw launched {k2_launches} times")
+    events = trace_events(path)
+    whole = trace_summary(events)
+    # steady steps: from the third batch fetch to the end of the last one
+    fetches = sorted(e["ts"] for e in events if e["name"] == "train: next batch")
+    if len(fetches) != TRACE_TRAIN_STEPS:
+        fail(f"[trace] (b) {len(fetches)} batch fetches in the trace")
+    steady = (fetches[2], fetches[-1])
+    train_summary = trace_summary(events, host_tid=threading.get_native_id(),
+                                  window=steady)
+    spans = {}
+    for e in events:
+        if e["name"].startswith("train: ") and steady[0] <= e["ts"] < steady[1]:
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
+    step_ms = 1e3 * float(np.median(np.diff(step_times[1:-1])))
+    steps = TRACE_TRAIN_STEPS - 3
+    print(f"[trace] (b) train() at examples/2d/train.toml's settings, {TRACE_TRAIN_STEPS} steps "
+          f"in torch.profiler: median step {step_ms:.1f} ms (profiled); whole window "
+          f"{whole['window_ms']:.1f} ms, idle share {whole['idle_share']:.3f}; {steps} steady "
+          f"steps {train_summary['window_ms'] / steps:.1f} ms a step, device busy "
+          f"{train_summary['busy_ms'] / steps:.1f} ms a step, idle share "
+          f"{train_summary['idle_share']:.3f}; the training thread's spans a step (ms) "
+          f"{json.dumps({k: round(v / steps, 2) for k, v in spans.items()})}; longest "
+          f"device-idle stretches [ms, at ms, the training thread's innermost ops at their "
+          f"middle]: {json.dumps([[round(g['ms'], 2), round(g['at_ms'], 1), g['host']] for g in train_summary['gaps']])}",
+          flush=True)
+    self_ms = host_self_ms(events, threading.get_native_id(), steady)
+    print(f"[trace] (b) host self time a steady step (ms) by [thread, op], top 12: "
+          f"{json.dumps([[t, n, round(ms / steps, 2)] for (t, n), ms in self_ms])}; the rest "
+          f"of a step is Python outside any recorded op", flush=True)
+    print("[trace] (b) top 10 device ops [name, ms, calls]: "
+          + json.dumps([[n, round(ms, 3), c] for n, ms, c in train_summary["top"]]), flush=True)
+    return launches, k2_launches
+
+
+class PhaseClock:
+    """Seconds of each phase: a call records the time since the last one."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.last, 1)
+        self.last = now
+
+    def total(self):
+        return time.perf_counter() - self.start
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2646,61 +3095,102 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda:0")
+    clock = PhaseClock()
     phase_card()
+    clock("card")
     phase_build()
+    clock("build")
     k1 = phase_conv_pass(device)
+    clock("K1")
     phase_k1_plans()
+    clock("K1 plans")
     k1_wide = phase_conv_pass(device, MODEL_WIDE, K1_WIDE_BATCH, "K1-wide")
+    clock("K1-wide")
     k2 = phase_conv_dw(device)
+    clock("K2")
     k3 = phase_ball_stats(device)
+    clock("K3")
     phase_fit(device)
+    clock("K3-fit")
     with tempfile.TemporaryDirectory() as work:
         phase_reference_checks(work, device)
+        clock("check")
         torch.cuda.reset_peak_memory_stats()
         infer_launches, k3_fit, ic_2d = phase_main_path(work)
+        clock("main")
         variants = phase_variants(os.path.join(work, "data.zarr"), device)
         variant_fits = {
             v: time_fit(f"{v} input (sample 0, bf16 embeddings)",
                         *_fit_problem(*r["fit_input"][2:], device),
                         r["ic"].mean_shift_max_iterations)
             for v, r in variants.items() if r["fit_input"] is not None and v != "meanshift"}
+        clock("variants")
         wide_launches = phase_wide_main(work)
+        clock("wide-main")
+        trace_launches, k2_trace = phase_trace(work)
+        clock("trace")
         k2_bf16, k2_f32 = phase_train(work, k2[torch.bfloat16]["ms"])
+        clock("train")
         phase_learn(work)
+        clock("learn")
         loss_modes = phase_loss_modes(device)
+        clock("grid/dense")
         k2_learn_grid = phase_learn_grid(work)
+        clock("learn-grid")
         k2_spd = phase_spd(work)
+        clock("spd")
         k2_native = phase_native(work)
+        clock("native")
         phase_3d_checks(device)
+        clock("3d-check")
         container_3d, checkpoint_3d = phase_train_3d(work)
+        clock("3d-train")
         infer_3d_launches, k3_fit_3d, ic_3d = phase_main_3d(work, container_3d, checkpoint_3d)
+        clock("3d-main")
         phase_cc(os.path.join(work, "data.zarr"), container_3d, ic_2d, ic_3d, device)
+        clock("cc")
         phase_3d_greedy(work, container_3d, checkpoint_3d)
+        clock("3d-greedy")
+        phase_pipelined_greedy(work, container_3d, checkpoint_3d)
+        clock("pipelined-greedy")
         phase_3d_elastic(work)
-        phase_hela(work)
+        clock("3d-elastic")
+        hela = phase_hela(work)
+        clock("hela")
+        sweep_launches = phase_sweep(work, hela)
+        clock("sweep")
     k1_launches = {torch.float32: infer_launches["float32"]["conv_pass_2d"],
                    torch.bfloat16: infer_launches["bfloat16"]["conv_pass_2d"]}
     # K2 launches of each path that ran it, by input type (the learn-grid
     # gate trains in float32, the loss-mode runs and [native] in bf16)
-    k2_paths = {torch.bfloat16: {"train": k2_bf16, "native": k2_native,
+    k2_paths = {torch.bfloat16: {"train": k2_bf16, "native": k2_native, "trace": k2_trace,
                                  "spd": k2_spd[torch.bfloat16],
                                  **{name: r["launches"] for name, r in loss_modes.items()}},
                 torch.float32: {"train": k2_f32, "learn-grid": k2_learn_grid,
                                 "spd": k2_spd[torch.float32]}}
+    # K1 and the fit by path: the main paths, the pipelined paths ([wide-main]
+    # both ways, [trace] (a) in f32) and [sweep] (HeLa's 24-fmap model, f32)
+    k1_paths = {torch.float32: {"main": k1_launches[torch.float32],
+                                "trace (pipelined)": trace_launches["conv_pass_2d"],
+                                "sweep (24 fmaps)": sweep_launches["conv_pass_2d"]},
+                torch.bfloat16: {"main": k1_launches[torch.bfloat16]}}
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         rows.append({"name": "conv_pass_2d", "dtype": str(dtype).removeprefix("torch."),
                      "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_pass.cu",
                      "replaces": "cellulus_tpu/ops/pallas_conv.py:55",
-                     "launches": k1_launches[dtype], **k1[dtype]})
+                     "launches": k1_launches[dtype], "launches_by_path": k1_paths[dtype],
+                     **k1[dtype]})
     for dtype in (torch.float32, torch.bfloat16):
         # the 256-fmap model: [wide-main] runs it in bfloat16 only
+        by_path = ({f"wide-main {mode}": n["conv_pass_2d"] for mode, n in wide_launches.items()}
+                   if dtype == torch.bfloat16 else {})
         rows.append({"name": "conv_pass_2d", "dtype": str(dtype).removeprefix("torch."),
                      "model": "examples/real-data (256 fmaps)", "route": "cuda",
                      "source": "cellulus_tpu_torch/csrc/conv_pass.cu",
                      "replaces": "cellulus_tpu/ops/pallas_conv.py:55",
-                     "launches": wide_launches["conv_pass_2d"] if dtype == torch.bfloat16 else 0,
-                     **k1_wide[dtype]})
+                     "launches": by_path.get("wide-main pipelined", 0),
+                     "launches_by_path": by_path, **k1_wide[dtype]})
     for dtype in (torch.bfloat16, torch.float32):
         rows.append({"name": "conv3x3_dw", "dtype": str(dtype).removeprefix("torch."),
                      "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_dw.cu",
@@ -2711,18 +3201,27 @@ def main() -> None:
                  "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
                  "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",
                  "launches": infer_launches["float32"]["ball_stats"], **k3})
+    fit_paths = {2: {"main": infer_launches["float32"]["mean_shift_fit"],
+                     **{f"wide-main {mode}": n["mean_shift_fit"]
+                        for mode, n in wide_launches.items()},
+                     "trace (pipelined)": trace_launches["mean_shift_fit"],
+                     "sweep": sweep_launches["mean_shift_fit"]},
+                 3: {"main": infer_3d_launches["float32"]["mean_shift_fit"]}}
     for d, fit, launches in ((2, k3_fit, infer_launches), (3, k3_fit_3d, infer_3d_launches)):
         fit.pop("out")
         rows.append({"name": "mean_shift_fit", "d": d, "route": "cuda",
                      "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
                      "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",
-                     "launches": launches["float32"]["mean_shift_fit"], **fit})
+                     "launches": launches["float32"]["mean_shift_fit"],
+                     "launches_by_path": fit_paths[d], **fit})
     for variant, fit in variant_fits.items():
         fit.pop("out")
         rows.append({"name": "mean_shift_fit", "d": 2, "path": variant, "route": "cuda",
                      "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
                      "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",
                      "launches": variants[variant]["launches"], **fit})
+    print(f"[time] seconds by phase: {json.dumps(clock.seconds)}, total {clock.total():.1f}",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,3 +51,61 @@ def test_the_shipped_kernels_share_the_tensor_core_header():
     for name in ("conv_dw", "conv_pass"):
         assert '#include "mma_tile.cuh"' in (kernels.CSRC / f"{name}.cu").read_text()
     assert (kernels.CSRC / "mma_tile.cuh").exists()
+
+
+def test_first_use_from_two_threads_builds_each_library_once(csrc, tmp_path, monkeypatch):
+    """The pipelined path's first K1 launch (calling thread) and first fit
+    launch (a worker) may load at once: the build lock compiles every source
+    once, and both threads get their library."""
+    import sys
+    import threading
+
+    log = tmp_path / "nvcc.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys, time\n"
+        "args = sys.argv[1:]\n"
+        f"open({str(log)!r}, 'a').write(args[-1] + '\\n')\n"
+        "time.sleep(0.2)\n"
+        "open(args[args.index('-o') + 1], 'w').write('lib')\n"
+    )
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(kernels, "_libs", {})
+    monkeypatch.setattr(kernels.ctypes, "CDLL", lambda path: ("loaded", path))
+    got = {}
+    start = threading.Barrier(2)
+
+    def first_use(name):
+        start.wait()
+        got[name] = kernels.load(name, {})
+
+    threads = [threading.Thread(target=first_use, args=(n,)) for n in ("alpha", "beta")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert sorted(log.read_text().split()) == sorted(str(csrc / f"{n}.cu") for n in
+                                                     ("alpha", "beta"))
+    assert got == {n: ("loaded", str(kernels._library_path(n))) for n in ("alpha", "beta")}
+
+
+def test_launch_counts_are_exact_under_threads():
+    import threading
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+
+    def count():
+        for _ in range(20000):
+            kernels.count_launch(wrapper)
+
+    threads = [threading.Thread(target=count) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert wrapper.launches == 80000

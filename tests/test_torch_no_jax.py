@@ -141,7 +141,8 @@ def test_no_jax_imports_in_the_sources():
     for module in ("datasets/zarr_dataset.py", "datasets/sampling.py", "datasets/elastic.py",
                    "datasets/elastic_device.py", "criterions/oce_loss.py", "train.py",
                    "segment.py", "ops/conv_dw.py", "ops/conv_vjp.py", "utils/checkpoint.py",
-                   "utils/logger.py", "ops/components.py", "ops/nucleus.py"):
+                   "utils/logger.py", "ops/components.py", "ops/nucleus.py", "pipeline.py",
+                   "utils/profiling.py", "cli.py"):
         assert f"cellulus_tpu_torch/{module}" in names
     for script in ("torch_kernel_check.py", "torch_learn_check.py", "torch_real_hela.py"):
         assert f"scripts/{script}" in names
