@@ -7,8 +7,8 @@
     python -m cellulus_tpu_torch --version
 
 ``train(argv)``, ``infer(argv)``, ``geometry(argv)`` and ``export(argv)``
-also run alone, as the JAX package's console scripts do. ``export`` is not
-ported yet: it parses its arguments and raises.
+also run alone, as the JAX package's console scripts do. ``export`` writes
+the tile predictor as a ``torch.export`` program (``export.py``).
 """
 
 from __future__ import annotations
@@ -62,21 +62,31 @@ def infer(argv=None) -> None:
 
 
 def export(argv=None) -> None:
-    """Serialize the trained tile predictor as a serving artifact: not
-    ported yet."""
+    """Serialize the trained tile predictor as a serving artifact
+    (``torch.export``; see :mod:`cellulus_tpu_torch.export`)."""
     parser = argparse.ArgumentParser(
-        description="Export a trained cellulus-tpu model for serving"
+        description="Export a trained cellulus-tpu model for serving (PyTorch port)"
     )
     parser.add_argument("config_file", help="infer-style TOML naming the checkpoint")
     parser.add_argument("output_dir")
-    parser.add_argument("--platforms", default=None)
-    parser.add_argument("--tile-batch", type=int, default=None)
-    parser.parse_args(argv)
-    raise NotImplementedError(
-        "export is not ported yet (ROADMAP: M14, export): the tile predictor "
-        "launches K1 through ctypes, which torch.export cannot trace until K1 "
-        "is a torch.library custom op"
+    parser.add_argument(
+        "--platforms",
+        default=None,
+        help="comma-separated platforms, 'cpu' and/or 'cuda', one artifact each "
+        "(default: the platform of inference_config.device)",
     )
+    parser.add_argument("--tile-batch", type=int, default=None)
+    args = parser.parse_args(argv)
+    from .export import export_from_experiment
+
+    platforms = args.platforms.split(",") if args.platforms else None
+    out = export_from_experiment(
+        _load(args.config_file),
+        args.output_dir,
+        tile_batch_size=args.tile_batch,
+        platforms=platforms,
+    )
+    print(f"Serving artifact written to {out}")
 
 
 def geometry(argv=None) -> None:
@@ -137,7 +147,7 @@ def main(argv=None) -> None:
         if name == "infer":
             p.add_argument("--checkpoint-sweep", action="store_true")
             p.add_argument("--keep-sweep-outputs", action="store_true")
-    e = sub.add_parser("export", help="serving export (not ported yet)")
+    e = sub.add_parser("export", help="serving export (torch.export program)")
     e.add_argument("config_file")
     e.add_argument("output_dir")
     e.add_argument("--platforms", default=None)

@@ -2,8 +2,10 @@
 
 Port of ``cellulus_tpu/infer.py`` (``infer`` and ``checkpoint_sweep``), 2D
 and 3D. Derives the mean-shift bandwidth and the minimum instance size from
-``object_size``, loads the ``.pth`` checkpoint named by
-``model_config.checkpoint``, and runs each stage whose dataset config is
+``object_size``, loads the checkpoint named by ``model_config.checkpoint``
+(a torch ``.pth`` or a JAX-package ``.ckpt``, under the rule of
+``utils/checkpoint.resolve_checkpoint`` for a ``.ckpt`` that only exists
+as ``.pth``), and runs each stage whose dataset config is
 present, on ``inference_config.device`` (``"cuda:0"`` by default): staged
 (each stage over every sample in turn), or pipelined (``pipeline.py``) when
 ``pipelined`` is set and predict, detect and segment are all configured.
@@ -15,7 +17,6 @@ from __future__ import annotations
 
 import copy
 import json
-import os
 import shutil
 import sys
 import time
@@ -32,6 +33,7 @@ from .io import DatasetMetaData, zarr
 from .models import load_checkpoint, unet_from_config
 from .predict import predict
 from .segment import segment
+from .utils.checkpoint import resolve_checkpoint
 from .utils.device import compute_dtype_for, resolve_device
 from .utils.profiling import maybe_trace, stage_timer
 
@@ -75,11 +77,12 @@ def infer(
     model = unet_from_config(
         model_config, in_channels=meta.num_channels, num_spatial_dims=meta.num_spatial_dims
     )
-    if model_config.checkpoint is None or not os.path.exists(model_config.checkpoint):
+    checkpoint = resolve_checkpoint(model_config.checkpoint)
+    if checkpoint is None or not checkpoint.exists():
         raise FileNotFoundError(
             f"Model weights do not exist at this location: {model_config.checkpoint}!"
         )
-    load_checkpoint(model_config.checkpoint, model)
+    load_checkpoint(checkpoint, model)
     model = model.to(device).eval()
     normalization_factor = experiment_config.normalization_factor
 
@@ -125,13 +128,15 @@ def checkpoint_sweep(
 ):
     """Model selection by measurement: score every retained checkpoint.
 
-    Port of ``cellulus_tpu/infer.py:checkpoint_sweep`` on the port's
-    ``.pth`` files. Training keeps the checkpoint of the lowest windowed
-    loss, but the unsupervised loss can select against F1 on real data.
-    With ground truth at hand this runs the full inference for every
-    numbered checkpoint (``NNNNNN.pth``, in ascending order) and then
-    ``best_loss.pth``, and keeps each one's best bandwidth's scores,
-    rounded to 4 places.
+    Port of ``cellulus_tpu/infer.py:checkpoint_sweep``, on the port's
+    ``.pth`` files and the JAX package's ``.ckpt`` files alike. Training
+    keeps the checkpoint of the lowest windowed loss, but the unsupervised
+    loss can select against F1 on real data. With ground truth at hand this
+    runs the full inference for every numbered checkpoint (``NNNNNN``, in
+    ascending order) and then ``best_loss``, and keeps each one's best
+    bandwidth's scores, rounded to 4 places. A name that exists with both
+    suffixes is swept once, as ``resolve_checkpoint`` reads a configured
+    ``.ckpt``: the ``.ckpt``; the rows are keyed by file name.
 
     Each checkpoint's stage outputs go to a throwaway
     ``<prediction container>.sweep-<stem>`` container (the ground truth is
@@ -158,14 +163,14 @@ def checkpoint_sweep(
     ckpt_dir = Path(
         checkpoint_dir or (Path(mc.checkpoint).parent if mc.checkpoint else "models")
     )
-    candidates = sorted(
-        (p for p in ckpt_dir.glob("*.pth") if p.stem.isdigit()), key=lambda p: int(p.stem)
-    )
-    best_loss = ckpt_dir / "best_loss.pth"
-    if best_loss.exists():
-        candidates.append(best_loss)
+    stems = {p.stem for p in ckpt_dir.glob("*") if p.suffix in (".pth", ".ckpt")}
+    names = sorted((s for s in stems if s.isdigit()), key=int)
+    names += ["best_loss"] if "best_loss" in stems else []
+    candidates = [resolve_checkpoint(ckpt_dir / f"{stem}.ckpt", announce=False)
+                  for stem in names]
     if not candidates:
-        raise ValueError(f"no .pth checkpoints under {ckpt_dir}")
+        raise ValueError(f"no .pth checkpoints and no .ckpt checkpoints under {ckpt_dir}")
+    best_loss = candidates[-1].name if names and names[-1] == "best_loss" else None
 
     gt_cfg = ic.evaluation_dataset_config
     gt_src = zarr.open(gt_cfg.container_path, "r")[gt_cfg.dataset_name]
@@ -224,8 +229,8 @@ def checkpoint_sweep(
             + " ".join(f"{k} {v:.4f}" for k, v in row.items() if isinstance(v, float))
             + marker
         )
-    if "best_loss.pth" in scored and winner != "best_loss.pth":
-        delta = rows[winner]["F1"] - rows["best_loss.pth"]["F1"]
+    if best_loss in scored and winner != best_loss:
+        delta = rows[winner]["F1"] - rows[best_loss]["F1"]
         print(
             f"  NOTE: measured selection beats best-loss selection by "
             f"{delta:+.4f} F1 — the unsupervised loss is not a reliable "

@@ -9,13 +9,12 @@
 - :func:`load_state_dict` loads one into a model strictly, refusing a
   state_dict whose upsampling mode is not the model's, as the JAX package's
   ``forward`` does (``cellulus_tpu/models/unet.py:359-372``).
-- :func:`load_checkpoint` reads a reference-format ``.pth`` (the dict the
-  reference training loop saves, weights under ``model_state_dict``) into a
-  model through :func:`load_state_dict`.
-
-The JAX package's own ``.ckpt`` files are flax msgpack and are not read
-here: convert them once with the JAX package's
-``cellulus_tpu.models.torch_export.save_torch_checkpoint``.
+- :func:`load_checkpoint` reads a checkpoint into a model through
+  :func:`load_state_dict`, by the file's content: a reference-format
+  ``.pth`` (the dict the reference training loop saves, weights under
+  ``model_state_dict``), or the JAX package's ``.ckpt`` (flax msgpack,
+  read by ``utils/msgpack.py``; its ``params`` go through
+  :func:`state_dict_from_jax_params`).
 """
 
 from __future__ import annotations
@@ -26,13 +25,22 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..utils.checkpoint import checkpoint_format, read_jax_checkpoint
+
+
+def _f32(leaf) -> np.ndarray:
+    """A params leaf as float32 numpy (a bfloat16 leaf arrives as a tensor)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().float().cpu().numpy()
+    return np.array(leaf, dtype=np.float32)
+
 
 def _conv(conv_params: Dict[str, Any], prefix: str, out: dict, transposed=False) -> None:
-    w = np.asarray(conv_params["w"], dtype=np.float32)  # (*K, C_in, C_out)
+    w = _f32(conv_params["w"])  # (*K, C_in, C_out)
     k = w.ndim - 2
     perm = ((k, k + 1) if transposed else (k + 1, k)) + tuple(range(k))
     out[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(w.transpose(perm)))
-    out[f"{prefix}.bias"] = torch.from_numpy(np.array(conv_params["b"], dtype=np.float32))
+    out[f"{prefix}.bias"] = torch.from_numpy(_f32(conv_params["b"]))
 
 
 def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -80,15 +88,21 @@ def load_state_dict(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor])
 
 
 def load_checkpoint(path, model: torch.nn.Module) -> Dict[str, Any]:
-    """Load a reference-format ``.pth`` into ``model`` (strict, see
-    :func:`load_state_dict`); return the checkpoint dict (``iteration``,
-    ``lowest_loss``, ...)."""
+    """Load a checkpoint into ``model`` (strict, see :func:`load_state_dict`),
+    a torch ``.pth`` or a JAX-package ``.ckpt`` by its content; return
+    ``iteration``, ``lowest_loss``, ``logger_data`` and ``model_state_dict``
+    (and a ``.pth``'s other keys). A corrupt or truncated ``.ckpt`` raises
+    ``ValueError``."""
     path = Path(path)
-    if path.suffix == ".ckpt":
-        raise ValueError(
-            f"{path} is a JAX-package checkpoint (flax msgpack); convert it "
-            "to .pth with cellulus_tpu.models.torch_export.save_torch_checkpoint"
-        )
-    state = torch.load(path, map_location="cpu", weights_only=True)
+    if checkpoint_format(path) == "jax":
+        jax_state = read_jax_checkpoint(path)
+        state = {
+            "iteration": int(jax_state.get("iteration", -1)),
+            "lowest_loss": float(jax_state.get("lowest_loss", float("inf"))),
+            "logger_data": jax_state.get("logger_data", {}),
+            "model_state_dict": state_dict_from_jax_params(jax_state["params"]),
+        }
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
     load_state_dict(model, state["model_state_dict"])
     return state

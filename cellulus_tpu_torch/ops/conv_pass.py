@@ -8,10 +8,14 @@ conv3x3 -> ReLU, all VALID, every stage with the pass's output width; f32
 accumulation, and each intermediate stored in the compute dtype.
 
 Replaces the TPU kernel ``cellulus_tpu/ops/pallas_conv.py:conv_pass_2d``.
-On a CUDA tensor :func:`conv_pass_2d` launches the hand-written kernel
-``csrc/conv_pass.cu`` (design and bound in its header); on a CPU tensor it
-runs :func:`conv_pass_2d_plain`, four ``F.conv2d`` calls with the same
-rounding points, which is also what the kernel is held against on the card.
+:func:`conv_pass_2d` checks its arguments (and refuses under autograd), then
+calls the custom op ``cellulus_tpu_torch::conv_pass_2d`` (``torch.library``,
+so that ``torch.export`` keeps a pass as one node). On a CUDA tensor the op
+launches the hand-written kernel ``csrc/conv_pass.cu`` (design and bound in
+its header) and counts the launch; on a CPU tensor it runs the plain
+version, four ``F.conv2d`` calls with the same rounding points
+(:func:`conv_pass_2d_plain`), which is also what the kernel is held against
+on the card.
 
 The kernel has two routes, chosen by shape before the launch
 (:func:`conv_pass_2d_plan`): the fused pass, one launch with the
@@ -163,6 +167,15 @@ def _checked_args(x, pass_params, compute_dtype):
     return weights, biases
 
 
+def _plain(x, weights, biases, compute_dtype):
+    """The four stages of the plain version on checked arguments."""
+    y = x.to(compute_dtype).permute(0, 3, 1, 2).float()
+    for w, b in zip(weights, biases):
+        w = w.to(compute_dtype).float().permute(3, 2, 0, 1)  # (C, C_in, kh, kw)
+        y = F.relu(F.conv2d(y, w, b.float())).to(compute_dtype).float()
+    return y.to(compute_dtype).permute(0, 2, 3, 1).contiguous()
+
+
 def conv_pass_2d_plain(
     x: torch.Tensor, pass_params: dict, compute_dtype=torch.float32
 ) -> torch.Tensor:
@@ -170,11 +183,7 @@ def conv_pass_2d_plain(
     ``compute_dtype``. Each stage convolves compute-dtype values in f32,
     adds the f32 bias, applies ReLU and rounds to the compute dtype."""
     weights, biases = _checked_args(x, pass_params, compute_dtype)
-    y = x.to(compute_dtype).permute(0, 3, 1, 2).float()
-    for w, b in zip(weights, biases):
-        w = w.to(compute_dtype).float().permute(3, 2, 0, 1)  # (C, C_in, kh, kw)
-        y = F.relu(F.conv2d(y, w, b.float())).to(compute_dtype).float()
-    return y.to(compute_dtype).permute(0, 2, 3, 1).contiguous()
+    return _plain(x, weights, biases, compute_dtype)
 
 
 def conv_pass_2d_plan(shape, c_out: int, compute_dtype):
@@ -213,7 +222,8 @@ def conv_pass_2d_design(shape, c_out: int, compute_dtype) -> str:
 def conv_pass_2d(
     x: torch.Tensor, pass_params: dict, compute_dtype=torch.float32
 ) -> torch.Tensor:
-    """Fused conv pass, channels-last.
+    """Fused conv pass, channels-last: the custom op
+    ``cellulus_tpu_torch::conv_pass_2d`` on checked arguments.
 
     Args:
         x: ``(B, H, W, C_in)``.
@@ -225,19 +235,46 @@ def conv_pass_2d(
     Returns:
         ``(B, H-4, W-4, C_out)`` in ``compute_dtype``.
     """
-    if x.device.type == "cpu":
-        return conv_pass_2d_plain(x, pass_params, compute_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv_pass_2d runs on CUDA or CPU tensors, not {x.device}")
     weights, biases = _checked_args(x, pass_params, compute_dtype)
+    return torch.ops.cellulus_tpu_torch.conv_pass_2d(x, *weights, *biases, compute_dtype)
+
+
+conv_pass_2d.launches = 0
+
+
+# The pass as a torch.library custom op, so that torch.export keeps each
+# pass as one node (``cellulus_tpu_torch/export.py``). Registering it loads
+# no library: the CUDA implementation builds or loads K1 at its first call.
+@torch.library.custom_op("cellulus_tpu_torch::conv_pass_2d", mutates_args=(),
+                         device_types="cpu")
+def _conv_pass_op(
+    x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
+    b0: torch.Tensor, b1: torch.Tensor, b2: torch.Tensor, b3: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """On CPU tensors: the plain version."""
+    return _plain(x, (w0, w1, w2, w3), (b0, b1, b2, b3), compute_dtype)
+
+
+@_conv_pass_op.register_fake
+def _(x, w0, w1, w2, w3, b0, b1, b2, b3, compute_dtype):
+    B, H, W, _ = x.shape
+    return x.new_empty((B, H - 4, W - 4, w0.shape[-1]), dtype=compute_dtype)
+
+
+@_conv_pass_op.register_kernel("cuda")
+def _(x, w0, w1, w2, w3, b0, b1, b2, b3, compute_dtype):
+    """On CUDA tensors: one launch of K1's route for this shape."""
     B, H, W, c_in = x.shape
-    c_out = weights[0].shape[-1]
+    c_out = w0.shape[-1]
     route, tile = conv_pass_2d_plan(x.shape, c_out, compute_dtype)
     lib = kernels.load("conv_pass", _SIGNATURES)
     # repack once per call: compute-dtype weights (kh, kw, C_in, C_out), f32 biases
     x = x.to(compute_dtype).contiguous()
-    ws = [w.to(compute_dtype).contiguous() for w in weights]
-    bs = [b.float().contiguous() for b in biases]
+    ws = [w.to(compute_dtype).contiguous() for w in (w0, w1, w2, w3)]
+    bs = [b.float().contiguous() for b in (b0, b1, b2, b3)]
     out = torch.empty((B, H - 4, W - 4, c_out), dtype=compute_dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -262,6 +299,3 @@ def conv_pass_2d(
     kernels.check_launch(rc, "conv_pass_2d")
     kernels.count_launch(conv_pass_2d)
     return out
-
-
-conv_pass_2d.launches = 0

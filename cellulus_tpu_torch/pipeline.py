@@ -15,8 +15,8 @@ shared stream every ``.cpu()`` would wait for the other thread's queued
 work and the pipeline would run as a queue. The workers' streams have the
 higher priority, so their small kernels take SMs ahead of predict's queued
 conv blocks, and predict fetches its tile batches through pinned memory
-(``predict._fetch``), which does not block the workers' CUDA calls while
-it waits.
+(``predict._HostSlots``), which does not block the workers' CUDA calls
+while it waits.
 Detect uploads the sample's host embeddings on the worker's stream (no
 device tensor crosses threads).
 

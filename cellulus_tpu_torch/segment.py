@@ -33,6 +33,7 @@ from .ops.nucleus import nucleus_partition_device
 from .ops.otsu import threshold_otsu
 from .utils.env import resolve_flag
 from .utils.profiling import time_device
+from .utils.progress import progress
 
 
 def want_device_nucleus(inference_config: InferenceConfig) -> bool:
@@ -166,7 +167,9 @@ def segment(inference_config: InferenceConfig, device) -> None:
         # works only when the two are one (cellulus_tpu/segment.py:222-230)
         ds_raw = zarr.open(ic.dataset_config.container_path, "r")[
             ic.dataset_config.dataset_name]
-    for sample in range(meta.num_samples):
+    label = "segment" if not nucleus else (
+        "segment (nucleus, device)" if want_device_nucleus(ic) else "segment (nucleus)")
+    for sample in progress(range(meta.num_samples), label, total=meta.num_samples):
         raw_image = np.asarray(ds_raw[sample, 0]) if nucleus else None
         for k in range(ic.num_bandwidths):
             ds_out[sample, k] = segment_sample(np.asarray(ds_in[sample, k]), raw_image, ic,

@@ -46,7 +46,8 @@ Phases, each failing the run (non-zero exit) if it fails:
    them), seconds a sample, fit launches, each new path's fit timed;
    ``[wide-main]``: ``cellulus_tpu_torch.infer`` on
    ``examples/real-data/infer.toml`` as written (256 fmaps, bf16,
-   ``pipelined = true``) on four 512^2 samples, then staged on the same
+   ``pipelined = true``, its ``models/best_loss.ckpt`` read by the rule as
+   the port's ``models/best_loss.pth``) on four 512^2 samples, then staged on the same
    inputs: the five stage datasets bit-equal, some sample's detect+segment
    (a worker thread) overlapping a later sample's predict (the calling
    thread), the pipelined wall time against the staged sum, K1 and the fit
@@ -62,7 +63,18 @@ Phases, each failing the run (non-zero exit) if it fails:
 9. the train main path: ``cellulus_tpu_torch.train`` at the full width of
    ``examples/2d/train.toml`` (bf16, elastic on, device pairs) for 20 steps,
    K2 launched 6 times a step, a resume, 3 float32 steps, then infer on the
-   trained checkpoint;
+   trained checkpoint; ``[ckpt]``: ``examples/2d/infer.toml`` as written
+   (``checkpoint = "models/best_loss.ckpt"``) where [train] left only the
+   port's ``models/best_loss.pth`` (read by the rule, its line printed),
+   then where the same weights are a ``best_loss.ckpt`` in the JAX
+   package's layout: every stage's output bit-equal; ``[export]``:
+   examples/2d's model exported by ``torch.export`` on the card in float32
+   and bf16, served by a fresh process (``chip_smoke.py --serve``) on the
+   same draws as ``tta_embeddings`` here: max abs difference, K1's
+   launches a call (one per 2D conv pass) and ms a call against the live
+   forward; ``[mc]``: K1's first pass at cin = 3 and K2 at Ci = 3 against
+   their plain versions, then a 3-channel infer and 3 train steps with the
+   launches counted;
 10. learn: a small recipe trains 400 steps and must beat its step-0 F1;
     ``[grid]``/``[dense]``: one step of each loss mode at the full width of
     examples/2d, float32 and bfloat16, card against CPU on the same weights
@@ -99,7 +111,11 @@ Phases, each failing the run (non-zero exit) if it fails:
     components, size filter, relabel) on the card against the CPU and the
     scipy oracle on every sample of ``[main]``'s and ``[3d-main]``'s
     detections, spirals card against CPU with their rounds, and a 128^3
-    sample's device route timed against the host route;
+    sample's device route timed against the host route; ``[stream]``: one
+    224^3 sample through examples/3d's model in bf16, the staged predict
+    streamed (tiles read from the zarr, written by one thread) against
+    ``predict_sample`` in memory, each in its own process
+    (``chip_smoke.py --stream``): bit-equal, seconds and peak RSS;
 14. ``[3d-greedy]``: ``examples/3d/infer.toml`` as it is (greedy clustering)
     on the bf16 3D embeddings through detect, segment and evaluate, greedy's
     iterations, host syncs and seconds a sample, and a 48^3 crop card
@@ -117,7 +133,8 @@ Phases, each failing the run (non-zero exit) if it fails:
     checkpoints [hela] left and a truncated copy: an error row for the copy,
     best_loss.pth's row equal to [hela]'s nucleus F1 and SEG;
 16. the kernels line (JSON, one row per kernel and input type; K1 at both
-    widths, with its launches by path (main, pipelined, sweep); K2's
+    widths and at cin = 3, with its launches by path (main, pipelined,
+    sweep, ckpt, export, mc); K2 at Ci = 3 and K2's
     launches by path, ``[spd]``'s graphed runs counted as warm-up launches
     plus captured calls times replays; the fit at d = 2 and d = 3 with its
     launches by path and on each new detect path), then the last line
@@ -134,9 +151,14 @@ import importlib.util
 import json
 import math
 import os
+import re
+import resource
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -144,7 +166,7 @@ import numpy as np
 import torch
 
 import cellulus_tpu_torch
-from cellulus_tpu_torch.configs import DatasetConfig, ExperimentConfig
+from cellulus_tpu_torch.configs import DatasetConfig, ExperimentConfig, InferenceConfig
 from cellulus_tpu_torch.datasets import (
     PairSampler,
     elastic_device,
@@ -158,6 +180,8 @@ from cellulus_tpu_torch.datasets.elastic_device import (
     elastic_deform_batch,
     map_coordinates_linear,
 )
+from cellulus_tpu_torch.export import artifact_name as export_artifact_name
+from cellulus_tpu_torch.export import draw_uniform, export_predictor, load_predictor
 from cellulus_tpu_torch.io import zarr
 from cellulus_tpu_torch.train import (
     StepChunks,
@@ -168,7 +192,7 @@ from cellulus_tpu_torch.train import (
     make_train_step_fused,
     make_train_step_grid,
 )
-from cellulus_tpu_torch.models import UNet, compute_geometry
+from cellulus_tpu_torch.models import UNet, compute_geometry, load_checkpoint, tta_embeddings
 from cellulus_tpu_torch.models.geometry import conv_pass_inputs
 from cellulus_tpu_torch.detect import detect_sample, mean_center_embeddings, sample_rng
 from cellulus_tpu_torch.infer import PIPELINED_STAGE, checkpoint_sweep
@@ -194,7 +218,7 @@ from cellulus_tpu_torch.utils.parity import (
 from cellulus_tpu_torch.ops.morphology import halo_removal
 from cellulus_tpu_torch.ops.nucleus import nucleus_partition_device, otsu_per_id
 from cellulus_tpu_torch.ops.otsu import threshold_otsu
-from cellulus_tpu_torch.predict import tile_origins
+from cellulus_tpu_torch.predict import predict, predict_sample, tile_origins
 from cellulus_tpu_torch.segment import cell_segment_sample, nucleus_partition
 from cellulus_tpu_torch.utils import kernels
 from cellulus_tpu_torch.utils.profiling import perf_report, reset_perf
@@ -399,12 +423,64 @@ def _library_pass(x, params, dtype):
     return y
 
 
-def pass_shapes(batch, model=MODEL):
+def pass_shapes(batch, model=MODEL, in_channels=1):
     """``(name, NHWC input shape, C_out)`` of every conv pass of a tile
     batch of ``batch`` images at ``model``'s width."""
     return [(name, (batch, *size, c_in), c_out) for name, size, c_in, c_out in conv_pass_inputs(
-        (CROP, CROP), model["downsampling_factors"], 1, model["num_fmaps"],
+        (CROP, CROP), model["downsampling_factors"], in_channels, model["num_fmaps"],
         model["fmap_inc_factor"], model["features_in_last_layer"])]
+
+
+def _k1_shape(name, shape, c_out, dtype, gen, device, tag):
+    """K1 against its plain version at one pass shape; its times (kernel,
+    plain, cuDNN, bound), operations and bytes."""
+    params = _pass_params(shape[-1], c_out, gen, device)
+    x = torch.rand(shape, generator=gen).to(device)
+    got = conv_pass_2d(x, params, dtype)
+    ref = conv_pass_2d_plain(x, params, dtype)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    max_err = float(err.max())
+    if dtype == torch.float32:
+        tol = 1e-5 + 1e-4 * ref.float().abs()
+        ok = bool((err <= tol).all())
+        tol_text = "rtol 1e-4, atol 1e-5"
+    else:
+        atol = 2e-2 * float(ref.float().abs().max())
+        ok = max_err <= atol
+        tol_text = f"atol 2e-2*max|ref| = {atol:.3g}"
+    if not ok or not torch.isfinite(got.float()).all():
+        fail(f"conv_pass_2d {name} {dtype}: max abs err {max_err:.3g} ({tol_text})")
+    del got, ref, err
+    ms = cuda_ms(lambda: conv_pass_2d(x, params, dtype))
+    plain_ms = cuda_ms(lambda: conv_pass_2d_plain(x, params, dtype))
+    library_ms = cuda_ms(lambda: _library_pass(x, params, dtype))
+    B, H, W, c_in = shape
+    e = torch.tensor([], dtype=dtype).element_size()
+    flops = _pass_flops(B, H, W, c_in, c_out)
+    nbytes = e * (B * H * W * c_in + B * (H - 4) * (W - 4) * c_out) + e * sum(
+        p["w"].numel() for p in params.values()) + 4 * 4 * c_out
+    bound_ms = 1e3 * max(flops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S)
+    print(f"[{tag}] {name:6s} {str(dtype):14s} {tuple(shape)}->{c_out}: "
+          f"{conv_pass_2d_design(shape, c_out, dtype)}; "
+          f"max_abs_err {max_err:.3g} ({tol_text}); kernel {ms:.2f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, "
+          f"cuDNN {library_ms:.2f} ms, bound {bound_ms:.3f} ms")
+    del x
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "max_abs_err": max_err, "flops": flops, "nbytes": nbytes}
+
+
+def _summed(rows, dtype):
+    """The sum of per-shape rows of one kernel: times summed, the largest
+    error, and what bounds the sum."""
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    by_ops = (sum(r["flops"] for r in rows) / PEAK_OPS[dtype]
+              >= sum(r["nbytes"] for r in rows) / HBM_BYTES_PER_S)
+    total["bound_by"] = "operations" if by_ops else "bytes"
+    return total
 
 
 def phase_conv_pass(device, model=MODEL, batch=TILE_BATCH * 2 * NUM_INFER_ITERATIONS,
@@ -415,49 +491,8 @@ def phase_conv_pass(device, model=MODEL, batch=TILE_BATCH * 2 * NUM_INFER_ITERAT
     gen = torch.Generator().manual_seed(1)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                 "max_abs_err": 0.0, "flops": 0.0, "nbytes": 0.0}
-        for name, shape, c_out in pass_shapes(batch, model):
-            params = _pass_params(shape[-1], c_out, gen, device)
-            x = torch.rand(shape, generator=gen).to(device)
-            got = conv_pass_2d(x, params, dtype)
-            ref = conv_pass_2d_plain(x, params, dtype)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs()
-            max_err = float(err.max())
-            if dtype == torch.float32:
-                tol = 1e-5 + 1e-4 * ref.float().abs()
-                ok = bool((err <= tol).all())
-                tol_text = "rtol 1e-4, atol 1e-5"
-            else:
-                atol = 2e-2 * float(ref.float().abs().max())
-                ok = max_err <= atol
-                tol_text = f"atol 2e-2*max|ref| = {atol:.3g}"
-            if not ok or not torch.isfinite(got.float()).all():
-                fail(f"conv_pass_2d {name} {dtype}: max abs err {max_err:.3g} ({tol_text})")
-            del got, ref, err
-            ms = cuda_ms(lambda: conv_pass_2d(x, params, dtype))
-            plain_ms = cuda_ms(lambda: conv_pass_2d_plain(x, params, dtype))
-            library_ms = cuda_ms(lambda: _library_pass(x, params, dtype))
-            B, H, W, c_in = shape
-            e = torch.tensor([], dtype=dtype).element_size()
-            flops = _pass_flops(B, H, W, c_in, c_out)
-            nbytes = e * (B * H * W * c_in + B * (H - 4) * (W - 4) * c_out) + e * sum(
-                p["w"].numel() for p in params.values()) + 4 * 4 * c_out
-            bound_ms = 1e3 * max(flops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S)
-            print(f"[{tag}] {name:6s} {str(dtype):14s} {tuple(shape)}->{c_out}: "
-                  f"{conv_pass_2d_design(shape, c_out, dtype)}; "
-                  f"max_abs_err {max_err:.3g} ({tol_text}); kernel {ms:.2f} ms "
-                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, "
-                  f"cuDNN {library_ms:.2f} ms, bound {bound_ms:.3f} ms")
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                           ("bound_ms", bound_ms), ("flops", flops), ("nbytes", nbytes)):
-                total[key] += v
-            total["max_abs_err"] = max(total["max_abs_err"], max_err)
-            del x
-            torch.cuda.empty_cache()
-        by_ops = total.pop("flops") / PEAK_OPS[dtype] >= total.pop("nbytes") / HBM_BYTES_PER_S
-        total["bound_by"] = "operations" if by_ops else "bytes"
+        total = _summed([_k1_shape(name, shape, c_out, dtype, gen, device, tag)
+                         for name, shape, c_out in pass_shapes(batch, model)], dtype)
         print(f"[{tag}] per tile batch of {batch} images, {dtype}: kernel {total['ms']:.2f} ms, "
               f"plain {total['plain_ms']:.2f} ms, cuDNN {total['library_ms']:.2f} ms, bound "
               f"{total['bound_ms']:.3f} ms ({total['bound_by']})", flush=True)
@@ -491,14 +526,57 @@ def phase_k1_plans():
           f"at {n} (pass, type, tile) cases of the 64- and 256-fmap models", flush=True)
 
 
-def dw_shapes(batch):
+def dw_shapes(batch, in_channels=1):
     """``(name, x shape, g shape)`` of every 3x3 filter gradient of a train
     step: the first and last conv of each pass."""
     shapes = []
-    for name, (B, H, W, c_in), c in pass_shapes(batch):
+    for name, (B, H, W, c_in), c in pass_shapes(batch, in_channels=in_channels):
         shapes.append((f"{name} c0", (B, H, W, c_in), (B, H - 2, W - 2, c)))
         shapes.append((f"{name} c3", (B, H - 2, W - 2, c), (B, H - 4, W - 4, c)))
     return shapes
+
+
+def _k2_shape(name, xs, gs, dtype, gen, device, tag="K2"):
+    """K2 against its plain version at one dw shape, bit-identical over two
+    launches; its times (kernel, plain, cuDNN, bound), operations and bytes."""
+    x = torch.randn(xs, generator=gen, device=device).to(dtype)
+    g = torch.randn(gs, generator=gen, device=device).to(dtype)
+    got = conv3x3_dw(x, g)
+    again = conv3x3_dw(x, g)
+    ref = conv3x3_dw_plain(x, g)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"conv3x3_dw {name} {dtype}: two launches on the same inputs differ")
+    err = (got - ref).abs()
+    max_err, scale = float(err.max()), float(ref.abs().max())
+    if dtype == torch.float32:
+        ok = bool((err <= 1e-4 * ref.abs() + 1e-5 * scale).all())
+        tol_text = "rtol 1e-4, atol 1e-5*max|ref|"
+    else:
+        ok = max_err <= 2e-2 * scale
+        tol_text = f"atol 2e-2*max|ref| = {2e-2 * scale:.3g}"
+    if not ok or not torch.isfinite(got).all():
+        fail(f"conv3x3_dw {name} {dtype}: max abs err {max_err:.3g} ({tol_text})")
+    del got, again, ref, err
+    B, H, W, c_in = xs
+    c_out = gs[-1]
+    w_shape = (c_out, c_in, 3, 3)
+    x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    ms = cuda_ms(lambda: conv3x3_dw(x, g))
+    plain_ms = cuda_ms(lambda: conv3x3_dw_plain(x, g))
+    library_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(x_nchw, w_shape, g_nchw))
+    flops = 2 * B * (H - 2) * (W - 2) * 9 * c_in * c_out
+    nbytes = x.element_size() * (x.numel() + g.numel()) + 4 * 9 * c_in * c_out
+    bound_ms = 1e3 * max(flops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S)
+    print(f"[{tag}] {name:9s} {str(dtype):14s} x{tuple(xs)} g{tuple(gs)}: "
+          f"{conv3x3_dw_design(c_in, c_out, dtype)}; bit-identical over two launches; "
+          f"max_abs_err {max_err:.3g} ({tol_text}); kernel {ms:.3f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+          f"cuDNN {library_ms:.3f} ms, bound {bound_ms:.3f} ms")
+    del x, g, x_nchw, g_nchw
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "max_abs_err": max_err, "flops": flops, "nbytes": nbytes}
 
 
 def phase_conv_dw(device):
@@ -506,51 +584,8 @@ def phase_conv_dw(device):
     gen = torch.Generator(device=device).manual_seed(6)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                 "max_abs_err": 0.0, "flops": 0.0, "nbytes": 0.0}
-        for name, xs, gs in dw_shapes(TRAIN_BATCH):
-            x = torch.randn(xs, generator=gen, device=device).to(dtype)
-            g = torch.randn(gs, generator=gen, device=device).to(dtype)
-            got = conv3x3_dw(x, g)
-            again = conv3x3_dw(x, g)
-            ref = conv3x3_dw_plain(x, g)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                fail(f"conv3x3_dw {name} {dtype}: two launches on the same inputs differ")
-            err = (got - ref).abs()
-            max_err, scale = float(err.max()), float(ref.abs().max())
-            if dtype == torch.float32:
-                ok = bool((err <= 1e-4 * ref.abs() + 1e-5 * scale).all())
-                tol_text = "rtol 1e-4, atol 1e-5*max|ref|"
-            else:
-                ok = max_err <= 2e-2 * scale
-                tol_text = f"atol 2e-2*max|ref| = {2e-2 * scale:.3g}"
-            if not ok or not torch.isfinite(got).all():
-                fail(f"conv3x3_dw {name} {dtype}: max abs err {max_err:.3g} ({tol_text})")
-            del got, again, ref, err
-            B, H, W, c_in = xs
-            c_out = gs[-1]
-            w_shape = (c_out, c_in, 3, 3)
-            x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-            ms = cuda_ms(lambda: conv3x3_dw(x, g))
-            plain_ms = cuda_ms(lambda: conv3x3_dw_plain(x, g))
-            library_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(x_nchw, w_shape, g_nchw))
-            flops = 2 * B * (H - 2) * (W - 2) * 9 * c_in * c_out
-            nbytes = x.element_size() * (x.numel() + g.numel()) + 4 * 9 * c_in * c_out
-            bound_ms = 1e3 * max(flops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S)
-            print(f"[K2] {name:9s} {str(dtype):14s} x{tuple(xs)} g{tuple(gs)}: "
-                  f"{conv3x3_dw_design(c_in, c_out, dtype)}; bit-identical over two launches; "
-                  f"max_abs_err {max_err:.3g} ({tol_text}); kernel {ms:.3f} ms "
-                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-                  f"cuDNN {library_ms:.3f} ms, bound {bound_ms:.3f} ms")
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                           ("bound_ms", bound_ms), ("flops", flops), ("nbytes", nbytes)):
-                total[key] += v
-            total["max_abs_err"] = max(total["max_abs_err"], max_err)
-            del x, g, x_nchw, g_nchw
-            torch.cuda.empty_cache()
-        by_ops = total.pop("flops") / PEAK_OPS[dtype] >= total.pop("nbytes") / HBM_BYTES_PER_S
-        total["bound_by"] = "operations" if by_ops else "bytes"
+        total = _summed([_k2_shape(name, xs, gs, dtype, gen, device)
+                         for name, xs, gs in dw_shapes(TRAIN_BATCH)], dtype)
         print(f"[K2] per train step, {dtype}: kernel {total['ms']:.3f} ms, plain "
               f"{total['plain_ms']:.3f} ms, cuDNN {total['library_ms']:.3f} ms, bound "
               f"{total['bound_ms']:.3f} ms ({total['bound_by']})")
@@ -2222,8 +2257,9 @@ def _interval_table(intervals):
 
 def phase_wide_main(work):
     """``[wide-main]``: examples/real-data/infer.toml as written (256 fmaps,
-    factor 3, bf16, crop 252, tile batch 4, ``pipelined = true``; only the
-    checkpoint, the datasets and the device are set) on WIDE_SAMPLES
+    factor 3, bf16, crop 252, tile batch 4, ``pipelined = true``, its
+    checkpoint line read by the rule as the port's ``models/best_loss.pth``;
+    only the datasets and the device are set) on WIDE_SAMPLES
     synthetic 512^2 samples with seeded weights, then the staged path on the
     same inputs: the five stage datasets bit-equal, some sample's
     detect+segment (a worker) overlapping a later sample's predict (the
@@ -2234,15 +2270,16 @@ def phase_wide_main(work):
     os.makedirs(wide)
     container = write_blob_container(os.path.join(wide, "data.zarr"), WIDE_SAMPLES, IMAGE_SIZE,
                                      seed=15)
-    checkpoint = os.path.join(wide, "weights.pth")
-    save_random_checkpoint(checkpoint, seed=16, **MODEL_WIDE)
+    # the TOML's checkpoint line, models/best_loss.ckpt, is kept: infer reads
+    # the port's models/best_loss.pth beside it by the rule
+    os.makedirs(os.path.join(wide, "models"))
+    save_random_checkpoint(os.path.join(wide, "models", "best_loss.pth"), seed=16, **MODEL_WIDE)
     config = ExperimentConfig.from_toml(os.path.join(REPO, "examples", "real-data", "infer.toml"))
     mc, ic = config.model_config, config.inference_config
     if ({k: getattr(mc, k) for k in MODEL_WIDE} != MODEL_WIDE or ic.precision != "bfloat16"
             or ic.crop_size != [CROP, CROP] or ic.tile_batch_size != TILE_BATCH
-            or not ic.pipelined):
+            or not ic.pipelined or str(mc.checkpoint) != "models/best_loss.ckpt"):
         fail("examples/real-data/infer.toml differs from the settings this script assumes")
-    mc.checkpoint = checkpoint
     ic.device = DEVICE
     torch.cuda.reset_peak_memory_stats()
     # pipelined, staged, pipelined again: the first run pays the stage
@@ -2251,6 +2288,12 @@ def phase_wide_main(work):
     runs = _run_both_paths(config, wide, "wide", container, (conv_pass_2d, mean_shift_fit),
                            modes=("pipelined", "staged", "pipelined again"))
     piped, staged, again = runs["pipelined"], runs["staged"], runs["pipelined again"]
+    for mode in runs:
+        with open(os.path.join(wide, f"wide-{mode}.log")) as f:
+            rule = [line.strip() for line in f if RULE_LINE in line]
+        if len(rule) != 1:
+            fail(f"[wide-main] {mode}: {len(rule)} lines of the .ckpt rule, expected 1")
+    print(f"[wide-main] the checkpoint line kept; the rule's line: {rule[0]!r}", flush=True)
     for run in (piped, again):
         differing = _differing_outputs(run["out"], staged["out"])
         if differing:
@@ -2289,6 +2332,436 @@ def phase_wide_main(work):
           f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
           f"{int(len(np.unique(seg[0])) - 1)} instances in sample 0", flush=True)
     return {mode: run["launches"] for mode, run in runs.items()}
+
+
+# -- [ckpt]: the example TOML's checkpoint line as written -------------------------------
+
+RULE_LINE = "does not exist: reading"
+
+
+def jax_params(state_dict):
+    """The JAX package's params tree (``{"down": {"level<l>": {"conv<i>":
+    {"w", "b"}}}, "up": .., "up_tconv": .., "head": ..}``, weights ``(*K,
+    C_in, C_out)``) of a funlib-named state dict: the inverse of
+    ``cellulus_tpu_torch.models.state_dict_from_jax_params``."""
+    tree = {"down": {}, "up": {}, "head": {}}
+    patterns = ((r"backbone\.l_conv\.(\d+)\.conv_pass\.(\d+)", "down"),
+                (r"backbone\.r_conv\.0\.(\d+)\.conv_pass\.(\d+)", "up"),
+                (r"backbone\.r_up\.0\.(\d+)\.up", "up_tconv"), (r"head\.(\d+)", "head"))
+    for key, weight in state_dict.items():
+        if not key.endswith(".weight"):
+            continue
+        prefix = key[: -len(".weight")]
+        for pattern, part in patterns:
+            m = re.fullmatch(pattern, prefix)
+            if m:
+                break
+        w = weight.detach().float().cpu().numpy()
+        k = w.ndim - 2
+        # (C_out, C_in, *K) -> (*K, C_in, C_out); transposed (C_in, C_out, *K) -> (*K, C_in, C_out)
+        perm = tuple(range(2, 2 + k)) + ((0, 1) if part == "up_tconv" else (1, 0))
+        conv = {"w": np.ascontiguousarray(w.transpose(perm)),
+                "b": state_dict[f"{prefix}.bias"].detach().float().cpu().numpy()}
+        if part == "head":
+            tree["head"][f"conv{int(m.group(1)) // 2}"] = conv
+        elif part == "up_tconv":
+            tree.setdefault("up_tconv", {})[f"level{m.group(1)}"] = conv
+        else:
+            tree[part].setdefault(f"level{m.group(1)}", {})[f"conv{int(m.group(2)) // 2}"] = conv
+    return tree
+
+
+def flax_msgpack(obj) -> bytes:
+    """``obj`` (dicts, lists, str, bytes, bool, int, float, None, numpy
+    arrays) in the layout ``flax.serialization.msgpack_serialize`` writes:
+    msgpack, big-endian lengths, each array ext type 1 whose payload is
+    msgpack ``(shape, dtype name, C-order bytes)``. The JAX package writes
+    its checkpoints so; the CPU tests hold this against flax's reader."""
+    out = bytearray()
+
+    def sized(n, fix, fix_limit, marker32):
+        if n < fix_limit:
+            out.append(fix | n)
+        else:
+            out.extend(bytes([marker32]) + struct.pack(">I", n))
+
+    def put(o):
+        if o is None:
+            out.append(0xC0)
+        elif isinstance(o, bool):
+            out.append(0xC3 if o else 0xC2)
+        elif isinstance(o, int):
+            if -32 <= o < 128:
+                out.extend(struct.pack(">b", o) if o < 0 else bytes([o]))
+            else:
+                out.extend(b"\xd3" + struct.pack(">q", o) if o < 0 else b"\xcf" + struct.pack(">Q", o))
+        elif isinstance(o, float):
+            out.extend(b"\xcb" + struct.pack(">d", o))
+        elif isinstance(o, str):
+            raw = o.encode()
+            sized(len(raw), 0xA0, 32, 0xDB)
+            out.extend(raw)
+        elif isinstance(o, bytes):
+            out.extend(b"\xc6" + struct.pack(">I", len(o)) + o)
+        elif isinstance(o, dict):
+            sized(len(o), 0x80, 16, 0xDF)
+            for k, v in o.items():
+                put(k)
+                put(v)
+        elif isinstance(o, (list, tuple)):
+            sized(len(o), 0x90, 16, 0xDD)
+            for v in o:
+                put(v)
+        elif isinstance(o, np.ndarray):
+            payload = flax_msgpack([list(o.shape), o.dtype.name, o.tobytes("C")])
+            out.extend(b"\xc9" + struct.pack(">I", len(payload)) + b"\x01" + payload)
+        else:
+            raise TypeError(f"flax_msgpack: {type(o).__name__}")
+
+    put(obj)
+    return bytes(out)
+
+
+def _example_2d_dir(path, container, checkpoint_kind, state):
+    """A directory laid out as examples/2d expects after its 01-data.py and
+    train: ``data_2d.zarr`` (``train``: [main]'s raw), ``out_2d.zarr`` with
+    the ground truth staged in, and ``models/best_loss.pth`` (the port's) or
+    ``models/best_loss.ckpt`` (the JAX package's train-state layout)."""
+    os.makedirs(os.path.join(path, "models"))
+    if checkpoint_kind == "pth":
+        torch.save(state, os.path.join(path, "models", "best_loss.pth"))
+    else:
+        with open(os.path.join(path, "models", "best_loss.ckpt"), "wb") as f:
+            f.write(flax_msgpack({
+                "iteration": int(state["iteration"]), "lowest_loss": float(state["lowest_loss"]),
+                "params": jax_params(state["model_state_dict"]), "opt_leaves": [],
+                "logger_data": {k: [float(v) for v in vs]
+                                for k, vs in state["logger_data"].items()}}))
+    src = zarr.open(container, "r")
+    for target, name, dst in (("data_2d.zarr", "raw", "train"),
+                              ("out_2d.zarr", "groundtruth", "groundtruth")):
+        f = zarr.open(os.path.join(path, target), "a")
+        f[dst] = src[name][...]
+        f[dst].attrs.update(src[name].attrs.asdict())
+
+
+def phase_ckpt(work):
+    """``[ckpt]``: examples/2d/infer.toml as written (``checkpoint =
+    "models/best_loss.ckpt"``, bf16, the default device), run where [train]
+    left only the port's ``models/best_loss.pth``: infer reads it by the
+    rule and prints the rule's line. Then run where the same weights are a
+    ``models/best_loss.ckpt`` in the JAX package's layout: the port reads
+    the file itself, prints no such line, and every stage's output is
+    bit-equal. Returns the first run's launches."""
+    toml = os.path.join(REPO, "examples", "2d", "infer.toml")
+    state = torch.load(os.path.join(work, "models", "best_loss.pth"), weights_only=True)
+    runs = {}
+    for kind in ("pth", "ckpt"):
+        d = os.path.join(work, f"ckpt-{kind}")
+        _example_2d_dir(d, os.path.join(work, "data.zarr"), kind, state)
+        config = ExperimentConfig.from_toml(toml)
+        mc, ic = config.model_config, config.inference_config
+        if (str(mc.checkpoint) != "models/best_loss.ckpt" or ic.device != DEVICE
+                or ic.precision != "bfloat16"
+                or {k: getattr(mc, k) for k in MODEL} != MODEL):
+            fail("examples/2d/infer.toml differs from the settings this script assumes")
+        conv_pass_2d.launches = mean_shift_fit.launches = 0
+        stage_seconds = {}
+        log = os.path.join(d, "infer.log")
+        with contextlib.chdir(d), logged(log):
+            results = cellulus_tpu_torch.infer(config, stage_seconds)
+        torch.cuda.synchronize()
+        with open(log) as f:
+            rule = [line.strip() for line in f if RULE_LINE in line]
+        launches = {"conv_pass_2d": conv_pass_2d.launches,
+                    "mean_shift_fit": mean_shift_fit.launches}
+        want_rule = 1 if kind == "pth" else 0
+        if len(rule) != want_rule:
+            fail(f"[ckpt] {kind}: {len(rule)} lines of the .ckpt rule, expected {want_rule}")
+        if launches != {"conv_pass_2d": 18, "mean_shift_fit": 2}:
+            fail(f"[ckpt] {kind}: launches {launches}, expected 18 K1 and 2 fits")
+        if results is None or not all(0.0 <= results[0][k] <= 1.0 for k in ("F1", "SEG")):
+            fail(f"[ckpt] {kind}: evaluate results {results}")
+        runs[kind] = dict(out=os.path.join(d, "out_2d.zarr"), rule=rule, results=results,
+                          seconds=stage_seconds, launches=launches)
+        print(f"[ckpt] examples/2d/infer.toml as written, models/ holding best_loss.{kind}: "
+              f"stages (s) {json.dumps({k: round(v, 3) for k, v in stage_seconds.items()})}, "
+              f"F1 {results[0]['F1']:.4f}, launches {json.dumps(launches)}"
+              + (f"; the rule's line: {rule[0]!r}" if rule else ""), flush=True)
+    differing = _differing_outputs(runs["pth"]["out"], runs["ckpt"]["out"])
+    if differing:
+        fail(f"[ckpt] the .pth and .ckpt runs differ (dataset: max abs difference) {differing}")
+    print("[ckpt] the runs from best_loss.pth (by the rule) and best_loss.ckpt: the five "
+          "stage datasets bit-equal", flush=True)
+    return runs["pth"]["launches"]
+
+
+# -- [export]: the tile predictor as a torch.export program, served in a new process ------
+
+def _export_inputs(path, precision):
+    return os.path.join(path, precision, "inputs.pt")
+
+
+def serve_worker(path):
+    """The serving process of ``[export]``: for each precision, load the
+    artifact (``load_predictor``), run it on the saved draws, count K1's
+    launches in one call and time a call; one JSON line each."""
+    device = torch.device(DEVICE)
+    for precision in ("float32", "bfloat16"):
+        predict_fn, meta = load_predictor(os.path.join(path, precision))
+        inputs = torch.load(_export_inputs(path, precision), weights_only=True)
+        tiles, uniform = inputs["tiles"].to(device), inputs["uniform"].to(device)
+        conv_pass_2d.launches = 0
+        t0 = time.perf_counter()
+        out = predict_fn(tiles, uniform)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = conv_pass_2d.launches
+        torch.save(out.cpu(), os.path.join(path, precision, "served.pt"))
+        ms = cuda_ms(lambda: predict_fn(tiles, uniform))
+        print(json.dumps({"precision": precision, "launches": launches, "ms": ms,
+                          "first_call_s": first_s, "platforms": meta["platforms"]}), flush=True)
+
+
+def phase_export(work):
+    """``[export]``: examples/2d's model (64 fmaps, tile batch 4, 16 TTA
+    iterations, seeded weights) exported on the card in float32 and bf16,
+    each graph's conv-pass nodes counted; a fresh process loads each
+    artifact and runs it on draws from ``draw_uniform``; its output against
+    ``tta_embeddings`` here on the same draws (max abs difference, and
+    whether bit-equal), K1's launches in the serving process in one call
+    (one per 2D conv pass) and the ms a call against the live forward's.
+    Returns the serving process's launches a call, by type."""
+    device = torch.device(DEVICE)
+    path = os.path.join(work, "export")
+    model = random_unet(21, **MODEL)
+    live_net = model.to(device).eval()
+    passes = len(pass_shapes(1))
+    live, stats = {}, {}
+    for precision in ("float32", "bfloat16"):
+        ic = InferenceConfig(crop_size=[CROP, CROP], tile_batch_size=TILE_BATCH,
+                             num_infer_iterations=NUM_INFER_ITERATIONS, precision=precision,
+                             device=DEVICE)
+        t0 = time.perf_counter()
+        out = export_predictor(model, ic, os.path.join(path, precision),
+                               platforms=(device.type,))
+        export_s = time.perf_counter() - t0
+        meta = json.loads(open(os.path.join(out, "predictor.json")).read())
+        program = torch.export.load(os.path.join(out, export_artifact_name(device.type)))
+        nodes = sum(1 for n in program.graph.nodes if n.op == "call_function"
+                    and "cellulus_tpu_torch.conv_pass_2d" in str(n.target))
+        if nodes != passes:
+            fail(f"[export] {precision}: {nodes} conv_pass_2d nodes, expected {passes}")
+        gen = torch.Generator(device=device).manual_seed(22)
+        tiles = torch.rand((TILE_BATCH, *meta["in_tile"], 1), generator=gen, device=device)
+        uniform = draw_uniform(gen, tiles.shape, NUM_INFER_ITERATIONS, device)
+        torch.save({"tiles": tiles.cpu(), "uniform": uniform.cpu()},
+                   _export_inputs(path, precision))
+        dtype = torch.bfloat16 if precision == "bfloat16" else torch.float32
+        with torch.no_grad():
+            live[precision] = tta_embeddings(live_net, tiles, uniform, ic.p_salt_pepper,
+                                             NUM_INFER_ITERATIONS, dtype).cpu()
+            live_ms = cuda_ms(lambda: tta_embeddings(live_net, tiles, uniform, ic.p_salt_pepper,
+                                                     NUM_INFER_ITERATIONS, dtype))
+        stats[precision] = dict(export_s=export_s, nodes=nodes, live_ms=live_ms)
+        del program, tiles, uniform
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve", path],
+                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    if proc.returncode != 0:
+        fail(f"[export] the serving process failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    served_launches = {}
+    for line in proc.stdout.splitlines():
+        if not line.startswith("{"):
+            continue
+        r = json.loads(line)
+        precision = r["precision"]
+        served = torch.load(os.path.join(path, precision, "served.pt"), weights_only=True)
+        ref = live[precision]
+        diff = float((served - ref).abs().max())
+        scale = float(ref.abs().max())
+        tol = 1e-4 * scale if precision == "float32" else 2e-2 * scale
+        if served.shape != ref.shape or not torch.isfinite(served).all() or diff > tol:
+            fail(f"[export] {precision}: served output {tuple(served.shape)} differs from "
+                 f"tta_embeddings by {diff:.3g} (bar {tol:.3g})")
+        if r["launches"] != passes:
+            fail(f"[export] {precision}: K1 launched {r['launches']} times in one served call, "
+                 f"expected {passes} (one per 2D conv pass)")
+        served_launches[precision] = r["launches"]
+        st = stats[precision]
+        print(f"[export] {precision}: exported on the card in {st['export_s']:.1f}s "
+              f"({st['nodes']} conv_pass_2d nodes); a fresh process served {TILE_BATCH} tiles "
+              f"x {2 * NUM_INFER_ITERATIONS} copies: max abs diff {diff:.3g} against "
+              f"tta_embeddings on the same draws (bit-equal: {bool(torch.equal(served, ref))}), "
+              f"K1 launches a call {r['launches']}, {r['ms']:.2f} ms a call against the live "
+              f"forward's {st['live_ms']:.2f} ms (first call {r['first_call_s']:.2f}s)",
+              flush=True)
+    if set(served_launches) != {"float32", "bfloat16"}:
+        fail(f"[export] the serving process printed {proc.stdout[-2000:]}")
+    return served_launches
+
+
+# -- [stream]: the staged predict streamed, against the sample in memory -------------------
+
+STREAM_SIZE = 224
+
+
+def _rss_mib():
+    """The process's resident memory now, MiB (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+def _peak_rss_during(fn):
+    """``(fn(), peak resident MiB while it ran)``, sampled every 2 ms."""
+    peak, done = [_rss_mib()], threading.Event()
+
+    def sample():
+        while not done.wait(0.002):
+            peak[0] = max(peak[0], _rss_mib())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        sampler.join()
+    return out, max(peak[0], _rss_mib())
+
+
+def stream_worker(mode, path):
+    """One ``[stream]`` run in a process of its own: ``stream``, the staged
+    predict (tiles read from the zarr, tiles written by one thread), or
+    ``memory``, ``predict_sample`` on the whole sample as float32; prints its
+    seconds, the resident memory before it and its peak while it ran, and
+    the process's peak (``ru_maxrss``, which also counts the start-up)."""
+    device = torch.device(DEVICE)
+    model = UNet(1, 3, num_spatial_dims=3, **MODEL_3D)
+    load_checkpoint(os.path.join(path, "weights.pth"), model)
+    model = model.to(device).eval()
+    ic = InferenceConfig(
+        crop_size=CROP_3D, precision="bfloat16", device=DEVICE,
+        dataset_config=DatasetConfig(container_path=os.path.join(path, "data.zarr"),
+                                     dataset_name="raw"),
+        prediction_dataset_config=DatasetConfig(
+            container_path=os.path.join(path, "out.zarr"), dataset_name="embeddings"))
+    nf = normalization_factor_for(np.uint16)
+
+    def run():
+        if mode == "stream":
+            return predict(model, ic, nf, device, torch.bfloat16)
+        raw = np.asarray(zarr.open(ic.dataset_config.container_path, "r")["raw"][0], np.float32)
+        return predict_sample(model, raw, ic, nf, 0, device, torch.bfloat16)
+
+    torch.cuda.synchronize()
+    before = _rss_mib()
+    t0 = time.perf_counter()
+    emb, peak = _peak_rss_during(run)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if mode == "memory":
+        np.save(os.path.join(path, "memory.npy"), emb)
+    max_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024  # KiB -> MiB
+    print(json.dumps({"mode": mode, "seconds": seconds, "rss_before_mib": before,
+                      "rss_peak_mib": peak, "max_rss_mib": max_rss}), flush=True)
+
+
+def phase_stream(work):
+    """``[stream]``: one STREAM_SIZE^3 uint16 sample through examples/3d's
+    model (seeded weights) in bf16, the staged predict streamed against
+    ``predict_sample`` on the sample in memory, each in a process of its
+    own: the embeddings bit-equal, the seconds of each, the resident memory
+    each run added at its peak and each process's ``ru_maxrss``."""
+    path = os.path.join(work, "stream")
+    os.makedirs(path)
+    rng = np.random.default_rng(41)
+    f = zarr.open(os.path.join(path, "data.zarr"), "a")
+    f["raw"] = rng.integers(0, 65536, (1, 1, *(STREAM_SIZE,) * 3), dtype=np.uint16)
+    f["raw"].attrs.update({"axis_names": ["s", "c", "z", "y", "x"], "resolution": [1, 1, 1]})
+    save_random_checkpoint(os.path.join(path, "weights.pth"), 42, num_spatial_dims=3,
+                           **MODEL_3D)
+    runs = {}
+    for mode in ("stream", "memory"):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--stream", mode, path],
+                              capture_output=True, text=True, timeout=300, cwd=REPO)
+        if proc.returncode != 0:
+            fail(f"[stream] {mode} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        runs[mode] = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
+    streamed = zarr.open(os.path.join(path, "out.zarr"), "r")["embeddings"][0]
+    in_memory = np.load(os.path.join(path, "memory.npy"))
+    if streamed.shape != (4, *(STREAM_SIZE,) * 3) or not np.array_equal(streamed, in_memory):
+        fail(f"[stream] streamed and in-memory embeddings differ: shapes {streamed.shape} "
+             f"{in_memory.shape}")
+    g = compute_geometry(CROP_3D, MODEL_3D["downsampling_factors"])
+    tiles = math.prod(len(tile_origins(max(STREAM_SIZE, o), o)) for o in g.output_size)
+    text = "; ".join(
+        f"{label} {r['seconds']:.3f}s, resident {r['rss_before_mib']:.0f} MiB before it, peak "
+        f"{r['rss_peak_mib']:.0f} MiB while it ran (+{r['rss_peak_mib'] - r['rss_before_mib']:.0f}"
+        f"), ru_maxrss {r['max_rss_mib']:.0f} MiB"
+        for label, r in (("streamed staged predict", runs["stream"]),
+                         ("in memory", runs["memory"])))
+    print(f"[stream] one {STREAM_SIZE}^3 uint16 sample, examples/3d's model, bf16, {tiles} "
+          f"tiles: embeddings bit-equal; {text} (the sample as float32 "
+          f"{4 * STREAM_SIZE**3 / 2**20:.0f} MiB, its embeddings {16 * STREAM_SIZE**3 / 2**20:.0f}"
+          f" MiB)", flush=True)
+
+
+# -- [mc]: multi-channel raw data ---------------------------------------------------------
+
+def phase_mc(work):
+    """``[mc]``: three input channels. K1's first pass at cin = 3 and K2's
+    first conv at Ci = 3 (the CUDA-core plan) against their plain versions
+    in float32 and bf16; then examples/2d's model with 3 input channels
+    (seeded weights) infers in bf16 on a 2 x 512^2 uint8 3-channel container
+    and trains 3 bf16 steps on it, with each kernel's launches counted.
+    Returns the kernel rows and the launches."""
+    device = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(31)
+    name, shape, c_out = pass_shapes(TILE_BATCH * 2 * NUM_INFER_ITERATIONS, in_channels=3)[0]
+    k1 = {dtype: _summed([_k1_shape(name, shape, c_out, dtype, gen, device, "mc")], dtype)
+          for dtype in (torch.float32, torch.bfloat16)}
+    gen = torch.Generator(device=device).manual_seed(32)
+    name, xs, gs = dw_shapes(TRAIN_BATCH, in_channels=3)[0]
+    k2 = {dtype: _summed([_k2_shape(name, xs, gs, dtype, gen, device, "mc")], dtype)
+          for dtype in (torch.float32, torch.bfloat16)}
+
+    path = os.path.join(work, "mc")
+    os.makedirs(path)
+    raw, labels = make_blobs(2, IMAGE_SIZE, seed=33, dtype=np.uint8)
+    noise = np.random.default_rng(33).integers(0, 64, raw.shape, dtype=np.uint8)
+    raw = np.concatenate([raw, raw[:, :, ::-1], noise], axis=1)
+    f = zarr.open(os.path.join(path, "data.zarr"), "a")
+    for key, data in (("raw", raw), ("groundtruth", labels)):
+        f[key] = data
+        f[key].attrs.update({"axis_names": ["s", "c", "y", "x"], "resolution": [1, 1]})
+    checkpoint = os.path.join(path, "weights.pth")
+    save_random_checkpoint(checkpoint, seed=34, in_channels=3, **MODEL)
+    config = infer_config(os.path.join(path, "data.zarr"), checkpoint, MODEL, device=DEVICE,
+                          precision="bfloat16", crop_size=[CROP, CROP])
+    conv_pass_2d.launches = mean_shift_fit.launches = 0
+    with contextlib.chdir(path), logged(os.path.join(path, "infer.log")):
+        results = cellulus_tpu_torch.infer(config)
+    torch.cuda.synchronize()
+    infer_launches = {"conv_pass_2d": conv_pass_2d.launches,
+                      "mean_shift_fit": mean_shift_fit.launches}
+    emb = zarr.open(os.path.join(path, "data.zarr"), "r")["embeddings"][...]
+    if emb.shape != (2, 3, IMAGE_SIZE, IMAGE_SIZE) or not np.isfinite(emb).all():
+        fail(f"[mc] embeddings {emb.shape}, finite={np.isfinite(emb).all()}")
+    if infer_launches != {"conv_pass_2d": 18, "mean_shift_fit": 2} or results is None:
+        fail(f"[mc] infer launches {infer_launches}, results {results}")
+    steps = 3
+    with contextlib.chdir(path), logged(os.path.join(path, "train.log")):
+        _, k2_launches = _run_train(train_config(
+            os.path.join(path, "data.zarr"), MODEL, precision="bfloat16", max_iterations=steps,
+            crop_size=[CROP, CROP], batch_size=2, elastic_deform=False,
+            save_best_model_every=10**6, save_model_every=10**6, save_snapshot_every=10**6))
+    if k2_launches != 6 * steps:
+        fail(f"[mc] K2 launched {k2_launches} times in {steps} steps, expected {6 * steps}")
+    print(f"[mc] 3-channel infer (bf16, 2 x {IMAGE_SIZE}^2 uint8): F1 {results[0]['F1']:.4f}, "
+          f"launches {json.dumps(infer_launches)}; {steps} bf16 train steps: K2 launches "
+          f"{k2_launches} = 6 x {steps}", flush=True)
+    return k1, k2, infer_launches["conv_pass_2d"], k2_launches
 
 
 # -- the detect variants ---------------------------------------------------------------
@@ -3092,8 +3565,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:2] == ["--serve"]:  # [export]'s serving process
+        serve_worker(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--stream"]:  # one of [stream]'s runs
+        stream_worker(sys.argv[2], sys.argv[3])
+        return
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # predict's and segment's progress lines would fill the error stream
+    os.environ.setdefault("CELLULUS_TPU_NO_PROGRESS", "1")
     device = torch.device("cuda:0")
     clock = PhaseClock()
     phase_card()
@@ -3131,6 +3612,12 @@ def main() -> None:
         clock("trace")
         k2_bf16, k2_f32 = phase_train(work, k2[torch.bfloat16]["ms"])
         clock("train")
+        ckpt_launches = phase_ckpt(work)
+        clock("ckpt")
+        export_launches = phase_export(work)
+        clock("export")
+        k1_mc, k2_mc, k1_mc_launches, k2_mc_launches = phase_mc(work)
+        clock("mc")
         phase_learn(work)
         clock("learn")
         loss_modes = phase_loss_modes(device)
@@ -3149,6 +3636,8 @@ def main() -> None:
         clock("3d-main")
         phase_cc(os.path.join(work, "data.zarr"), container_3d, ic_2d, ic_3d, device)
         clock("cc")
+        phase_stream(work)
+        clock("stream")
         phase_3d_greedy(work, container_3d, checkpoint_3d)
         clock("3d-greedy")
         phase_pipelined_greedy(work, container_3d, checkpoint_3d)
@@ -3168,12 +3657,17 @@ def main() -> None:
                                  **{name: r["launches"] for name, r in loss_modes.items()}},
                 torch.float32: {"train": k2_f32, "learn-grid": k2_learn_grid,
                                 "spd": k2_spd[torch.float32]}}
+    k2_paths[torch.bfloat16]["mc (3 channels)"] = k2_mc_launches
     # K1 and the fit by path: the main paths, the pipelined paths ([wide-main]
     # both ways, [trace] (a) in f32) and [sweep] (HeLa's 24-fmap model, f32)
     k1_paths = {torch.float32: {"main": k1_launches[torch.float32],
                                 "trace (pipelined)": trace_launches["conv_pass_2d"],
-                                "sweep (24 fmaps)": sweep_launches["conv_pass_2d"]},
-                torch.bfloat16: {"main": k1_launches[torch.bfloat16]}}
+                                "sweep (24 fmaps)": sweep_launches["conv_pass_2d"],
+                                "export (served, a call)": export_launches["float32"]},
+                torch.bfloat16: {"main": k1_launches[torch.bfloat16],
+                                 "ckpt (examples/2d/infer.toml)": ckpt_launches["conv_pass_2d"],
+                                 "export (served, a call)": export_launches["bfloat16"],
+                                 "mc (3 channels)": k1_mc_launches}}
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         rows.append({"name": "conv_pass_2d", "dtype": str(dtype).removeprefix("torch."),
@@ -3191,6 +3685,19 @@ def main() -> None:
                      "replaces": "cellulus_tpu/ops/pallas_conv.py:55",
                      "launches": by_path.get("wide-main pipelined", 0),
                      "launches_by_path": by_path, **k1_wide[dtype]})
+    for dtype in (torch.float32, torch.bfloat16):
+        # [mc]: the first pass at cin = 3; launches: the 3-channel infer's (bf16, every pass)
+        rows.append({"name": "conv_pass_2d", "dtype": str(dtype).removeprefix("torch."),
+                     "input": "first pass, cin = 3 ([mc])", "route": "cuda",
+                     "source": "cellulus_tpu_torch/csrc/conv_pass.cu",
+                     "replaces": "cellulus_tpu/ops/pallas_conv.py:55",
+                     "launches": k1_mc_launches if dtype == torch.bfloat16 else 0, **k1_mc[dtype]})
+        # [mc]: the first conv's filter gradient at Ci = 3; launches: the 3-channel train's
+        rows.append({"name": "conv3x3_dw", "dtype": str(dtype).removeprefix("torch."),
+                     "input": "first conv, Ci = 3 ([mc])", "route": "cuda",
+                     "source": "cellulus_tpu_torch/csrc/conv_dw.cu",
+                     "replaces": "cellulus_tpu/ops/pallas_dw.py:64",
+                     "launches": k2_mc_launches if dtype == torch.bfloat16 else 0, **k2_mc[dtype]})
     for dtype in (torch.bfloat16, torch.float32):
         rows.append({"name": "conv3x3_dw", "dtype": str(dtype).removeprefix("torch."),
                      "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_dw.cu",

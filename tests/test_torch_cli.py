@@ -1,6 +1,7 @@
 """The port's command line (``cellulus_tpu_torch/cli.py``) against the JAX
 package's (``cellulus_tpu/cli.py``): subcommands, flags and their dispatch,
-``geometry``'s text, ``--version``, and ``export`` refusing (M14)."""
+``geometry``'s text, ``--version``, and ``export``'s flags (its artifact:
+tests/test_torch_export.py)."""
 
 import subprocess
 import sys
@@ -81,13 +82,25 @@ def test_version(capsys):
     assert capsys.readouterr().out.strip() == cellulus_tpu_torch.__version__
 
 
-@pytest.mark.parametrize("argv", [
-    ["export", INFER_TOML, "out"],
-    ["export", INFER_TOML, "out", "--platforms", "cuda", "--tile-batch", "8"],
+@pytest.mark.parametrize("argv,platforms,tile_batch", [
+    (["export", INFER_TOML, "out"], None, None),
+    (["export", INFER_TOML, "out", "--platforms", "cpu,cuda", "--tile-batch", "8"],
+     ["cpu", "cuda"], 8),
 ])
-def test_export_raises_naming_m14(argv):
-    with pytest.raises(NotImplementedError, match="M14, export"):
-        cli.main(argv)
+def test_export_passes_its_flags(argv, platforms, tile_batch, monkeypatch, capsys):
+    """``export <toml> <dir> [--platforms P] [--tile-batch N]`` as in the JAX
+    package's CLI: the TOML's config, the directory and both flags reach
+    ``export_from_experiment``."""
+    import cellulus_tpu_torch.export as export_mod
+
+    seen = []
+    monkeypatch.setattr(export_mod, "export_from_experiment",
+                        lambda config, out, **kw: seen.append((config, out, kw)) or out)
+    cli.main(argv)
+    (config, out, kwargs), = seen
+    assert out == "out" and kwargs == {"tile_batch_size": tile_batch, "platforms": platforms}
+    assert str(config.model_config.checkpoint) == "models/best_loss.ckpt"
+    assert capsys.readouterr().out.endswith("Serving artifact written to out\n")
 
 
 def test_module_entry_point(tmp_path):

@@ -1,5 +1,5 @@
 """The port, chip_smoke.py and the port's scripts (``scripts/torch_*.py``)
-import neither JAX nor the JAX package, and
+import neither JAX, flax, msgpack nor the JAX package, and
 the port runs end to end on the CPU through its API and its command line."""
 
 import ast
@@ -28,7 +28,7 @@ stage_seconds = {}
 results = cellulus_tpu_torch.infer(config, stage_seconds)
 bad = sorted(
     m for m in sys.modules
-    if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+    if m in ("jax", "msgpack") or m.startswith(("jax.", "jaxlib", "flax", "msgpack."))
     or m == "cellulus_tpu" or m.startswith("cellulus_tpu.")
 )
 
@@ -70,7 +70,7 @@ infer = chip_smoke.infer_config(container, "models/best_loss.pth", model, device
 results = cellulus_tpu_torch.infer(infer)
 bad = sorted(
     m for m in sys.modules
-    if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+    if m in ("jax", "msgpack") or m.startswith(("jax.", "jaxlib", "flax", "msgpack."))
     or m == "cellulus_tpu" or m.startswith("cellulus_tpu.")
 )
 lines = ["object_size = %d" % chip_smoke.OBJECT_SIZE, "[model_config]"]
@@ -142,7 +142,8 @@ def test_no_jax_imports_in_the_sources():
                    "datasets/elastic_device.py", "criterions/oce_loss.py", "train.py",
                    "segment.py", "ops/conv_dw.py", "ops/conv_vjp.py", "utils/checkpoint.py",
                    "utils/logger.py", "ops/components.py", "ops/nucleus.py", "pipeline.py",
-                   "utils/profiling.py", "cli.py"):
+                   "utils/profiling.py", "cli.py", "utils/msgpack.py", "utils/progress.py",
+                   "export.py", "predict.py", "models/convert.py"):
         assert f"cellulus_tpu_torch/{module}" in names
     for script in ("torch_kernel_check.py", "torch_learn_check.py", "torch_real_hela.py"):
         assert f"scripts/{script}" in names
@@ -150,6 +151,6 @@ def test_no_jax_imports_in_the_sources():
         (str(f.relative_to(REPO)), name)
         for f in files
         for name in _imported_modules(f)
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "cellulus_tpu")
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "cellulus_tpu")
     ]
     assert offending == []

@@ -50,8 +50,16 @@ def test_pth_from_jax_export_loads_the_same_weights(tmp_path):
 
 
 def test_load_checkpoint_refuses_jax_ckpt(tmp_path):
-    with pytest.raises(ValueError, match="torch_export"):
-        load_checkpoint(tmp_path / "best_loss.ckpt", UNet(1, 2, 8, 2, 16, [[2, 2]], 2))
+    """A JAX-package .ckpt cut short is refused with the JAX package's
+    wording (a whole one loads: tests/test_torch_ckpt.py)."""
+    from cellulus_tpu.utils.checkpoint import save_checkpoint
+
+    spec, params, _ = _pair()
+    path = tmp_path / "best_loss.ckpt"
+    save_checkpoint(path, {"iteration": 0, "lowest_loss": 1.0, "params": params})
+    path.write_bytes(path.read_bytes()[:-100])
+    with pytest.raises(ValueError, match="corrupt or truncated checkpoint"):
+        load_checkpoint(path, UNet(1, 2, 8, 2, 16, [[2, 2]], 2))
 
 
 def test_tta_without_noise_matches_jax():
