@@ -74,13 +74,14 @@ class InferenceConfig:
             to the ``CELLULUS_TPU_DEVICE_DETECT`` env var.
         spatial_shards: [tpu extension] predict each sample as ONE
             whole-volume forward sharded over this many devices along the
-            first spatial axis, exchanging conv halos over the ICI
-            (`parallel/spatial.py`; the workload's sequence-parallelism
-            analogue). 0/1 = the default independent-tile path. Per-pixel
-            outputs are bit-identical to the tiled path when
-            `p_salt_pepper == 0` (with noise the TTA draws differ: tiles
-            key noise per tile, the sharded forward per sample). Not
-            ported: values of 2 and above raise (ROADMAP M13).
+            first spatial axis, each shard's conv halo copied from its
+            neighbours' devices (`parallel/spatial.py`; the workload's
+            sequence-parallelism analogue). 0/1 = the default
+            independent-tile path. Per-pixel outputs equal the tiled
+            path's when `p_salt_pepper == 0` (with noise the TTA draws
+            differ: tiles draw noise per tile batch, the sharded forward
+            per sample and shard). On CUDA, fewer visible GPUs than shards
+            raises ValueError; on the CPU the shards run in turn.
         device_nucleus: run "nucleus" post-processing on the device, all
             instances of a sample at once (``ops/nucleus.py``, the JAX
             package's device path: per-id histograms, a batched Otsu and

@@ -45,8 +45,13 @@ class TrainConfig:
             but missing is an error.
         precision: "float32" or "bfloat16" compute for the model.
         seed: Base RNG seed for init + sampling.
-        data_parallelism: Number of mesh data shards; ``None`` = all local
-            devices.
+        data_parallelism: Number of data-parallel ranks, one process a
+            device (``parallel/distributed.py``); ``None`` = every visible
+            GPU (one on the CPU), lowered to the largest divisor of
+            ``batch_size``. Outside a process group ``train()`` spawns the
+            ranks itself (NCCL on CUDA, gloo on the CPU); under ``torchrun``
+            the group is the launcher's. On CUDA more ranks than visible
+            GPUs raises ValueError.
         device_pair_sampling: Sample anchor/reference pairs on the device
             with a ``torch.Generator`` seeded by (seed + 17, iteration): the
             host sampler's distribution, no per-step coordinate transfer.
@@ -70,8 +75,9 @@ class TrainConfig:
             eagerly. The losses come back once a chunk, cadence actions
             (best model, checkpoints, snapshots, the stop file) act at the
             chunk's end and save under its last iteration, and the last
-            chunk may be shorter. ``loss_mode="dense"`` reads its reference
-            offsets on the host every step and raises with values above 1.
+            chunk may be shorter. Every loss mode runs so; data-parallel
+            on CUDA the graph holds the gradients' all_reduce, which needs
+            NCCL: in a gloo group values above 1 raise.
         transfer_precision: [tpu extension] "float32" ships normalized crops;
             "native" ships crops in the source dtype (uint8 crops are a
             quarter of the float32 bytes, uint16 half) and the step

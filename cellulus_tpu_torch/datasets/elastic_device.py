@@ -196,15 +196,24 @@ def elastic_deform_batch(
     crop_size: Tuple[int, ...],
     control_point_spacing: int,
     control_point_jitter: float,
+    batch_size: Optional[int] = None,
+    rows: Optional[slice] = None,
 ):
     """Batched channels-last deform: ``fn(raw (B, *padded, C), generator) ->
-    (B, *crop, C)`` float32, an independent deformation per batch element."""
+    (B, *crop, C)`` float32, an independent deformation per batch element.
+
+    With ``batch_size`` and ``rows`` (a data-parallel rank) the deformations
+    are drawn for the global batch of ``batch_size`` and ``raw`` holds its
+    ``rows``, which take theirs."""
     crop_size = tuple(int(c) for c in crop_size)
 
     def fn(raw: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         rotation, scale, control_points = draw_deformations(
-            generator, raw.shape[0], crop_size, control_point_spacing,
+            generator, batch_size or raw.shape[0], crop_size, control_point_spacing,
             control_point_jitter, raw.device)
+        if rows is not None:
+            rotation, scale = rotation[rows], scale[rows]
+            control_points = None if control_points is None else control_points[rows]
         grid = deformation_grid(crop_size, tuple(raw.shape[1:-1]), rotation, scale,
                                 control_points)
         return map_coordinates_linear(raw, grid)

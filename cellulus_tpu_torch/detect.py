@@ -18,12 +18,18 @@ branches in its order:
     smoothed offset magnitude (computed once a sample);
   - greedy clustering (``clustering = "greedy"``) on the device.
 
+Over several devices the stage takes samples in turn on each (a thread a
+device, ``cellulus_tpu/detect.py:446-470``), and the bandwidth sweep splits
+its fits over them when their count divides the bandwidths'.
+
 Outputs (the JAX package's layouts): ``detection`` ``(s, num_bandwidths,
 *spatial)`` uint16, ``binary-segmentation`` ``(s, 1, *spatial)`` uint16 and
 ``centered-embeddings`` ``(s, D + 1, *spatial)`` float32.
 """
 
 from __future__ import annotations
+
+import concurrent.futures
 
 import numpy as np
 import torch
@@ -36,6 +42,7 @@ from .ops.greedy_cluster import greedy_cluster
 from .ops.mean_shift import mean_shift_segmentation, mean_shift_sweep_fit_predict
 from .ops.otsu import quantile_device, threshold_otsu, threshold_otsu_device
 from .ops.peaks import smooth_peak_seeds
+from .parallel.mesh import as_devices, local_devices
 from .utils.env import resolve_flag
 from .utils.profiling import time_device
 
@@ -130,11 +137,13 @@ def detect_sample(
     rng: np.random.Generator,
     device,
     stats=None,
+    devices=None,
 ):
     """Detect instances in one sample's ``(D + 1, *spatial)`` embeddings.
 
     ``stats``, when given, receives greedy clustering's per-bandwidth
-    statistics (iterations, host syncs, instances).
+    statistics (iterations, host syncs, instances). ``devices``, when given,
+    are the devices the bandwidth sweep may split its fits over.
 
     Returns ``(threshold, binary_mask, centered_embeddings, detections
     (num_bandwidths, *spatial) uint16)``.
@@ -168,7 +177,7 @@ def detect_sample(
         X = absolute.reshape(num_spatial_dims, -1).T[binary_mask.ravel()]
         labels = mean_shift_sweep_fit_predict(
             X, bandwidths, reduction_probability=ic.reduction_probability,
-            max_iter=ic.mean_shift_max_iterations, rng=rng, device=device)
+            max_iter=ic.mean_shift_max_iterations, rng=rng, device=device, devices=devices)
         for k in range(ic.num_bandwidths):
             spatial = np.full(binary_mask.shape, -1, np.int32)
             spatial[binary_mask] = labels[k]
@@ -205,8 +214,13 @@ def detect_sample(
     return threshold, binary_mask, centered, detections
 
 
-def detect(inference_config: InferenceConfig, device) -> None:
+def detect(inference_config: InferenceConfig, device, devices=None) -> None:
+    """Detect stage over every sample; over several ``devices`` (default:
+    every visible GPU of ``device``'s type, one CPU) sample ``s`` runs on
+    ``devices[s % n]``, a worker thread a device. Each sample draws from its
+    own stream, so the outputs do not depend on the split."""
     ic = inference_config
+    devices = local_devices(device=device) if devices is None else as_devices(devices)
     meta = DatasetMetaData.from_dataset_config(ic.dataset_config)
     f = zarr.open(ic.detection_dataset_config.container_path, "a")
     ds_in = f[ic.detection_dataset_config.secondary_dataset_name]
@@ -229,15 +243,25 @@ def detect(inference_config: InferenceConfig, device) -> None:
     for ds in (ds_detection, ds_binary, ds_centered):
         ds.attrs.update(spatial_attrs(meta))
 
-    for sample in range(meta.num_samples):
+    def one(sample: int):
         threshold, binary_mask, centered, detections = detect_sample(
             np.asarray(ds_in[sample], dtype=np.float32),
             ic,
             meta.num_spatial_dims,
             sample_rng(ic.seed, sample),
-            device,
+            devices[sample % len(devices)] if len(devices) > 1 else device,
+            devices=devices,
         )
         ds_binary[sample, 0] = binary_mask.astype(np.uint16)
         ds_centered[sample] = centered
         ds_detection[sample] = detections
+        return sample, threshold
+
+    if len(devices) > 1:
+        workers = max(2, min(len(devices), meta.num_samples))
+        with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as pool:
+            done = list(pool.map(one, range(meta.num_samples)))
+    else:
+        done = map(one, range(meta.num_samples))
+    for sample, threshold in done:
         print(f"For sample {sample}, binary threshold {threshold} was used.")

@@ -1,6 +1,11 @@
 """The object-centric-embedding U-Net, its geometry and its weight bridge."""
 
-from .convert import load_checkpoint, load_state_dict, state_dict_from_jax_params
+from .convert import (
+    adam_moments_from_jax,
+    load_checkpoint,
+    load_state_dict,
+    state_dict_from_jax_params,
+)
 from .geometry import UNetGeometry, compute_geometry
 from .unet import (
     UNet,
@@ -12,6 +17,7 @@ from .unet import (
 
 __all__ = [
     "UNet",
+    "adam_moments_from_jax",
     "UNetGeometry",
     "compute_geometry",
     "init_unet_",

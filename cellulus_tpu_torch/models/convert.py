@@ -6,6 +6,9 @@
   arrays, weights ``(*K, C_in, C_out)``) into the port's funlib-named
   state_dict (conv weights ``(C_out, C_in, *K)``, transposed-conv weights
   ``(C_in, C_out, *K)`` at ``backbone.r_up.0.<l>.up``), 2D or 3D.
+- :func:`adam_moments_from_jax` maps the JAX package's optax Adam state
+  (a ``.ckpt``'s ``opt_leaves``) onto the same names and layout, for a
+  training run that resumes from a ``.ckpt``.
 - :func:`load_state_dict` loads one into a model strictly, refusing a
   state_dict whose upsampling mode is not the model's, as the JAX package's
   ``forward`` does (``cellulus_tpu/models/unet.py:359-372``).
@@ -19,8 +22,9 @@
 
 from __future__ import annotations
 
+import warnings
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -65,6 +69,66 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor
     _conv(params["head"]["conv0"], "head.0", sd)
     _conv(params["head"]["conv1"], "head.2", sd)
     return sd
+
+
+def _leaf_paths(tree, prefix=()) -> List[tuple]:
+    """The paths of a nested dict's leaves in ``jax.tree_util.tree_leaves``
+    order: keys sorted at every level."""
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [p for key in sorted(tree) for p in _leaf_paths(tree[key], prefix + (key,))]
+
+
+def _unflatten(paths, leaves) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def adam_moments_from_jax(params: Dict[str, Any], opt_leaves, log_grad_norm: bool,
+                          lr_milestones: bool) -> Optional[Dict[str, Any]]:
+    """The JAX package's Adam state, from a ``.ckpt``'s ``opt_leaves``, for
+    the port's ``torch.optim.Adam``: ``{"count", "exp_avg": state_dict,
+    "exp_avg_sq": state_dict}``, the moments named and laid out as
+    :func:`state_dict_from_jax_params` lays out the weights.
+
+    ``opt_leaves`` is ``jax.tree_util.tree_leaves`` of the optax chain
+    ``cellulus_tpu/train.py:make_optimizer`` builds: the recorded grad norm
+    (with ``log_grad_norm``), ``scale_by_adam``'s ``count``, its ``mu`` and
+    ``nu`` (each over ``params`` in sorted-key order), and the schedule's
+    ``count`` (with ``lr_milestones``); clipping and the decay term hold
+    none. msgpack may restore the list as a map keyed ``"0"``, ``"1"``, ...
+    When the count does not match the configured optimizer, the JAX
+    package's rule holds (``cellulus_tpu/train.py:unpack_opt_state``): a
+    ``RuntimeWarning`` in its words, and None (fresh moments)."""
+    if isinstance(opt_leaves, dict):
+        opt_leaves = [opt_leaves[k] for k in sorted(opt_leaves, key=int)]
+    paths = _leaf_paths(params)
+    P = len(paths)
+    first = 1 if log_grad_norm else 0
+    expected = first + 1 + 2 * P + (1 if lr_milestones else 0)
+    if len(opt_leaves) != expected:
+        warnings.warn(
+            f"checkpoint optimizer state has {len(opt_leaves)} arrays "
+            f"but the configured optimizer expects {expected} "
+            "(optimizer config changed since the checkpoint?); optimizer "
+            "state reinitialized — Adam moments reset, lr_milestones count "
+            "restarts at the resume iteration",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+        return None
+    mu = opt_leaves[first + 1 : first + 1 + P]
+    nu = opt_leaves[first + 1 + P : first + 1 + 2 * P]
+    return {
+        "count": int(np.asarray(opt_leaves[first])),
+        "exp_avg": state_dict_from_jax_params(_unflatten(paths, mu)),
+        "exp_avg_sq": state_dict_from_jax_params(_unflatten(paths, nu)),
+    }
 
 
 def load_state_dict(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:

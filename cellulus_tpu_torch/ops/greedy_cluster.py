@@ -168,21 +168,25 @@ def greedy_cluster(
     loop.load(*inputs)
     run = lambda: loop.batch(n)  # noqa: E731
     if dev.type == "cuda":
-        # one warm-up iteration, then the capture (which runs nothing), then
-        # the loop from its start again
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            loop.step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # one capture at a time in the process (the pipelined path runs
-        # detect in worker threads); "thread_local" lets the other threads
-        # (predict's tile batches) allocate and sync while this one captures
-        with _CAPTURE_LOCK, torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            loop.batch(n)
-        loop.reset()
-        run = graph.replay
+        with torch.cuda.device(dev):
+            # one warm-up iteration, then the capture (which runs nothing),
+            # then the loop from its start again
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                loop.step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # one capture at a time in the process (the pipelined path runs
+            # detect in worker threads); "thread_local" lets the other threads
+            # (predict's tile batches) allocate and sync while this one
+            # captures; on `side`, a stream of `dev` (torch's default capture
+            # stream belongs to whichever device was current at its first use)
+            with _CAPTURE_LOCK, torch.cuda.graph(graph, stream=side,
+                                                 capture_error_mode="thread_local"):
+                loop.batch(n)
+            loop.reset()
+            run = graph.replay
     while True:
         run()
         syncs += 1

@@ -154,33 +154,42 @@ def mean_shift_sweep_fit_predict(
     max_iter: int = 300,
     rng: Optional[np.random.Generator] = None,
     device="cuda:0",
+    devices=None,
 ) -> np.ndarray:
     """Mean shift at each of K bandwidths over ONE fit subsample draw (the
     JAX package's ``mean_shift_sweep_fit_predict``; its results differ from
     K serial :func:`mean_shift_fit_predict` calls only by that shared draw).
     Every input is uploaded first (a copy from pageable host memory waits
-    for the stream), then the K fits launch one after another on one stream
-    with no host sync between them; then each is deduplicated and
-    predicted. Returns ``(K, N)`` int32 labels."""
+    for the stream), then the K fits launch one after another with no host
+    sync between them; then each is deduplicated and predicted. With a list
+    of ``devices`` whose length divides K, the K fits split over them in
+    contiguous blocks (``cellulus_tpu/detect.py:338-356``); else all run on
+    ``device``. Returns ``(K, N)`` int32 labels."""
     X = np.asarray(X, dtype=np.float32)
     n, d = X.shape
     bandwidths = [float(b) for b in bandwidths]
+    K = len(bandwidths)
     if n == 0:
-        return np.zeros((len(bandwidths), 0), np.int32)
+        return np.zeros((K, 0), np.int32)
     X_fit = fit_subsample(X, reduction_probability, rng)
-    dev = torch.device(device)
-    X_fit_t = torch.from_numpy(np.ascontiguousarray(X_fit)).to(dev)
-    X_t = torch.from_numpy(X).to(dev)
-    seeds = [torch.from_numpy(bin_seeds(X_fit, bin_size=b)).to(dev) for b in bandwidths]
+    devs = [torch.device(device)]
+    if devices is not None and len(devices) > 1 and K % len(devices) == 0:
+        devs = [torch.device(dv) for dv in devices]
+    on = [devs[k * len(devs) // K] for k in range(K)]
+    X_fit_t = {dv: torch.from_numpy(np.ascontiguousarray(X_fit)).to(dv) for dv in devs}
+    X_t = {dv: torch.from_numpy(X).to(dv) for dv in devs}
+    seeds = [torch.from_numpy(bin_seeds(X_fit, bin_size=b)).to(dv)
+             for b, dv in zip(bandwidths, on)]
     fits = time_device("detect.device", lambda: [
-        launch_fit(X_fit_t, s, b, max_iter) if len(s) else None
-        for s, b in zip(seeds, bandwidths)])
-    labels = np.full((len(bandwidths), n), -1, np.int32)
+        launch_fit(X_fit_t[dv], s, b, max_iter) if len(s) else None
+        for s, b, dv in zip(seeds, bandwidths, on)])
+    labels = np.full((K, n), -1, np.int32)
     for k, (b, fit) in enumerate(zip(bandwidths, fits)):
         if fit is not None:
             bw2 = fit_thresholds(b)[0]
             kept = _dedupe(*fit, bw2)
-            labels[k] = time_device("detect.device", _predict, X_t, kept, bw2).cpu().numpy()
+            labels[k] = time_device("detect.device", _predict, X_t[on[k]], kept,
+                                    bw2).cpu().numpy()
     return labels
 
 

@@ -1,6 +1,6 @@
 """Pipelined inference: predict / detect / segment overlap across samples.
 
-Port of ``cellulus_tpu/pipeline.py`` on one device. The staged path runs
+Port of ``cellulus_tpu/pipeline.py``. The staged path runs
 each stage over all samples before the next starts; this one streams:
 while the calling thread predicts sample ``s + 1``'s tiles, a stage worker
 takes sample ``s`` through detect and segment, and every zarr write goes
@@ -19,6 +19,10 @@ conv blocks, and predict fetches its tile batches through pinned memory
 while it waits.
 Detect uploads the sample's host embeddings on the worker's stream (no
 device tensor crosses threads).
+
+Over several devices predict splits each tile batch over them, and sample
+``s``'s detect and segment run on ``devices[s % n]``, on the worker's
+stream of that device; there are as many workers as devices, at least two.
 
 ``infer()`` takes this path when ``inference_config.pipelined`` is set and
 the prediction, detection and segmentation configs are all present.
@@ -43,12 +47,13 @@ from .detect import detect_sample, sample_rng
 from .io import DatasetMetaData, zarr
 from .io.meta_data import spatial_attrs
 from .models import UNet, compute_geometry
+from .parallel.mesh import as_devices, local_devices, replicate
 from .predict import predict_sample
 from .segment import segment_sample
 
 # stage workers: detect/segment of one sample overlaps the next sample's
 # predict; a second worker keeps host glue and device work of two samples
-# overlapping (the JAX package's max(2, number of devices), one device here)
+# overlapping (the JAX package's max(2, number of devices))
 STAGE_WORKERS = 2
 # the stage workers' CUDA streams run at a higher priority than predict's
 # (lower is higher; predict's stream has 0): K1's blocks fill every SM, and
@@ -103,6 +108,7 @@ def infer_pipelined(
     device,
     compute_dtype=torch.float32,
     intervals: Optional[Dict[str, Dict[int, tuple]]] = None,
+    devices=None,
 ) -> None:
     """Predict, detect and segment every sample, overlapped across samples,
     into the five datasets the staged path writes (``embeddings``,
@@ -113,12 +119,16 @@ def infer_pipelined(
     ``(start, end)`` of ``"predict"`` (calling thread), ``"detect"`` and
     ``"segment"`` (its worker), from ``time.perf_counter``.
 
+    ``devices`` default to every visible GPU of ``device``'s type (one CPU).
+
     A failure in a worker or a write is raised here, after the loop."""
     ic = inference_config
     device = torch.device(device)
+    devices = local_devices(device=device) if devices is None else as_devices(devices)
+    replicas = replicate(model, devices) if len(devices) > 1 else None
     meta = DatasetMetaData.from_dataset_config(ic.dataset_config)
     D = meta.num_spatial_dims
-    num_stage_workers = stage_workers_for(ic, meta, STAGE_WORKERS)
+    num_stage_workers = stage_workers_for(ic, meta, max(STAGE_WORKERS, len(devices)))
     if intervals is not None:
         for name in ("predict", "detect", "segment"):
             intervals.setdefault(name, {})
@@ -159,12 +169,14 @@ def infer_pipelined(
 
     local = threading.local()
 
-    def worker_stream():
-        if device.type != "cuda":
+    def worker_stream(dev):
+        if dev.type != "cuda":
             return contextlib.nullcontext()
-        if not hasattr(local, "stream"):
-            local.stream = torch.cuda.Stream(device, priority=WORKER_STREAM_PRIORITY)
-        return torch.cuda.stream(local.stream)
+        if not hasattr(local, "streams"):
+            local.streams = {}
+        if dev not in local.streams:
+            local.streams[dev] = torch.cuda.Stream(dev, priority=WORKER_STREAM_PRIORITY)
+        return torch.cuda.stream(local.streams[dev])
 
     # permits = workers that can hold a finished sample + the one sample the
     # predict loop is assembling: bounds how far predict runs ahead
@@ -178,14 +190,15 @@ def infer_pipelined(
         """Detect and segment one sample in a worker thread."""
         try:
             label = f"detect+segment sample {sample}"
-            with torch.profiler.record_function(label), worker_stream():
+            dev = devices[sample % len(devices)] if len(devices) > 1 else device
+            with torch.profiler.record_function(label), worker_stream(dev):
                 t0 = time.perf_counter()
                 threshold, binary_mask, centered, detections = detect_sample(
-                    embeddings, ic, D, sample_rng(ic.seed, sample), device)
+                    embeddings, ic, D, sample_rng(ic.seed, sample), dev, devices=devices)
                 t1 = time.perf_counter()
                 print(f"For sample {sample}, binary threshold {threshold} was used.")
                 raw_image = np.asarray(raw_ds[sample, 0]) if nucleus else None
-                segs = [segment_sample(detections[k], raw_image, ic, device)
+                segs = [segment_sample(detections[k], raw_image, ic, dev)
                         for k in range(ic.num_bandwidths)]
                 t2 = time.perf_counter()
             write(ds_binary, (sample, 0), binary_mask.astype(np.uint16))
@@ -208,7 +221,8 @@ def infer_pipelined(
                 t0 = time.perf_counter()
                 raw = np.asarray(raw_ds[sample], dtype=np.float32)
                 embeddings = predict_sample(model, raw, ic, float(normalization_factor),
-                                            sample, device, compute_dtype)
+                                            sample, device, compute_dtype, devices=devices,
+                                            replicas=replicas)
                 t1 = time.perf_counter()
             if intervals is not None:
                 intervals["predict"][sample] = (t0, t1)

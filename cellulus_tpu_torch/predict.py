@@ -1,12 +1,18 @@
 """Tiled, test-time-augmented embedding prediction.
 
-Port of ``cellulus_tpu/predict.py`` (single device), 2D and 3D: output
+Port of ``cellulus_tpu/predict.py``, 2D and 3D: output
 tiles cover the image or volume on a shingled grid, each tile is read with
 its valid-conv context under reflect boundary handling in every axis, and
 ``tile_batch_size`` tiles at a time run all ``2 * num_infer_iterations``
 noisy copies as one batched forward. The salt-and-pepper draws come from
 one ``torch.Generator`` per sample, seeded from ``(inference_config.seed,
 sample)``, one draw a tile batch in batch order (:func:`draw_uniform`).
+
+Over a list of devices each tile batch is split into one chunk a device,
+each run on that device's copy of the model, with the batch's draws made
+as on one device and split with it: a tile's noise does not depend on the
+split. With ``spatial_shards >= 2`` each sample is instead one whole-sample
+forward sharded over the devices (``parallel/spatial.py``).
 
 The staged :func:`predict` streams: each batch's tiles, with their halos,
 are read from the zarr on demand, and each output tile is written through
@@ -31,6 +37,8 @@ from .io import DatasetMetaData, zarr
 from .io.meta_data import spatial_attrs
 from .io.regions import read_reflect_region
 from .models import UNet, compute_geometry, tta_embeddings
+from .parallel.mesh import as_devices, local_devices, replicate, shard_batch
+from .parallel.spatial import spatial_devices, spatial_tta_sample
 from .utils.device import seeded_generator
 from .utils.profiling import time_device
 from .utils.progress import progress
@@ -121,6 +129,8 @@ def predict_sample(
     write_fn: Optional[Callable[[np.ndarray, tuple], None]] = None,
     source: Optional[Callable[[tuple, tuple], np.ndarray]] = None,
     spatial: Optional[Sequence[int]] = None,
+    devices: Optional[Sequence] = None,
+    replicas=None,
 ) -> Optional[np.ndarray]:
     """``(C, *spatial)`` raw sample -> ``(D + 1, *spatial)`` float32
     embeddings. With ``transfer_precision = "float16"`` each tile batch's
@@ -135,13 +145,27 @@ def predict_sample(
         source: ``source(origin, size) -> (C, *size)`` normalized float32
             region under reflect boundary handling (the streaming reader);
             ``spatial`` is then the sample's spatial extent.
+        devices: the devices each tile batch is split over (default
+            ``[device]``); with ``spatial_shards >= 2``, the shards' devices
+            (default: that many of ``device``'s type, which raises when
+            fewer GPUs are visible). ``replicas``: the model a device
+            (``parallel.mesh.replicate``), made once by a caller that
+            predicts many samples.
     """
-    if inference_config.spatial_shards >= 2:
-        raise NotImplementedError(
-            "spatial_shards >= 2 (a whole-sample sharded forward) is not ported yet "
-            "(ROADMAP: M13, multi-GPU)"
-        )
     device = torch.device(device)
+    shards = int(inference_config.spatial_shards)
+    if shards >= 2:
+        if raw is None or write_fn is not None:
+            raise ValueError("spatial_shards >= 2 predicts a whole sample held in memory "
+                             "(raw), not a streamed one")
+        if devices is None:
+            devices = spatial_devices(shards, device)
+        return spatial_tta_sample(model, np.asarray(raw), inference_config,
+                                  normalization_factor, sample_seed, compute_dtype, devices,
+                                  replicas)
+    devices = as_devices(devices) if devices is not None else [device]
+    if len(devices) > 1:
+        replicas = replicas or replicate(model, devices)
     if source is None:
         raw = np.asarray(raw)
         spatial = raw.shape[1:]
@@ -176,7 +200,15 @@ def predict_sample(
         tiles = slots.upload(host_tiles, slot)
         uniform = draw_uniform(gen, tiles.shape, nii, device)
         with torch.no_grad():
-            return tta_embeddings(model, tiles, uniform, p, nii, compute_dtype)
+            if len(devices) == 1:
+                return tta_embeddings(model, tiles, uniform, p, nii, compute_dtype)
+            # one chunk of the batch (and of its draws) a device, in order
+            outs = [
+                tta_embeddings(replicas[d], t, u, p, nii, compute_dtype)
+                for (d, t), (_, u) in zip(shard_batch(tiles, devices),
+                                          shard_batch(uniform, devices, dim=1))
+            ]
+            return torch.cat([o.to(device) for o in outs])
 
     def emit(fetch, batch):
         for tile_out, origin in zip(_HostSlots.finish_fetch(fetch), batch):
@@ -213,9 +245,14 @@ def predict(
     normalization_factor,
     device,
     compute_dtype=torch.float32,
+    devices: Optional[Sequence] = None,
 ) -> None:
     """Predict stage: raw zarr -> embeddings zarr ``(s, D + 1, *spatial)``,
-    streamed: tiles read on demand, output tiles written as they come."""
+    streamed: tiles read on demand, output tiles written as they come. Each
+    tile batch is split over ``devices`` (default: every visible GPU of
+    ``device``'s type, one CPU), one model copy a device made once. With
+    ``spatial_shards >= 2`` each sample is read whole and predicted as one
+    sharded forward (``cellulus_tpu/predict.py:375-393``)."""
     dataset_config = inference_config.dataset_config
     meta = DatasetMetaData.from_dataset_config(dataset_config)
     raw_ds = zarr.open(dataset_config.container_path, "r")[dataset_config.dataset_name]
@@ -235,6 +272,20 @@ def predict(
     )
     nf = float(normalization_factor)
     spatial = tuple(meta.spatial_array)
+    shards = inference_config.spatial_shards
+    if shards >= 2:
+        devices = spatial_devices(shards, device, devices)
+        replicas = replicate(model, devices)
+        for sample in range(meta.num_samples):
+            raw = np.asarray(raw_ds[sample], np.float32)
+            if raw.ndim == meta.num_spatial_dims:  # no channel axis stored
+                raw = raw[None]
+            ds[sample] = predict_sample(model, raw, inference_config, nf, sample, device,
+                                        compute_dtype, devices=devices, replicas=replicas)
+        ds.attrs.update(spatial_attrs(meta))
+        return
+    devices = local_devices(device=device) if devices is None else as_devices(devices)
+    replicas = replicate(model, devices) if len(devices) > 1 else None
     # one writer thread: overlapping (shingled) tile writes land in origin
     # order, so the last tile wins as in the assembled array
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as writer:
@@ -253,7 +304,8 @@ def predict(
                 writes.append(writer.submit(ds.__setitem__, sel, tile))
 
             predict_sample(model, None, inference_config, nf, sample, device, compute_dtype,
-                           write_fn=write_fn, source=source, spatial=spatial)
+                           write_fn=write_fn, source=source, spatial=spatial,
+                           devices=devices, replicas=replicas)
         for write in writes:
             write.result()
     ds.attrs.update(spatial_attrs(meta))

@@ -16,9 +16,15 @@ the ``min_size`` filter and a consecutive relabel on the device
 (``ops/components.py:size_filter_device``); only uint16 labels come back to
 the host. With ``min_size == 0`` the post-processed detections are kept as
 they are, without relabelling, as in the reference.
+
+Over several devices the (sample, bandwidth) jobs take the devices in turn,
+a worker thread a device (``cellulus_tpu/segment.py:_run_device_jobs``).
 """
 
 from __future__ import annotations
+
+import concurrent.futures
+import itertools
 
 import numpy as np
 import torch
@@ -31,6 +37,7 @@ from .ops.components import size_filter_device
 from .ops.morphology import halo_removal
 from .ops.nucleus import nucleus_partition_device
 from .ops.otsu import threshold_otsu
+from .parallel.mesh import as_devices, local_devices
 from .utils.env import resolve_flag
 from .utils.profiling import time_device
 from .utils.progress import progress
@@ -149,8 +156,12 @@ def segment_sample(detections: np.ndarray, raw_image, inference_config: Inferenc
     return seg.astype(np.uint16)
 
 
-def segment(inference_config: InferenceConfig, device) -> None:
+def segment(inference_config: InferenceConfig, device, devices=None) -> None:
+    """Segment stage over every sample and bandwidth; over several
+    ``devices`` (default: every visible GPU of ``device``'s type, one CPU)
+    job ``j`` of the (sample, bandwidth) jobs runs on ``devices[j % n]``."""
     ic = inference_config
+    devices = local_devices(device=device) if devices is None else as_devices(devices)
     nucleus = ic.post_processing == "nucleus"
     meta = DatasetMetaData.from_dataset_config(ic.dataset_config)
     f = zarr.open(ic.segmentation_dataset_config.container_path, "a")
@@ -169,6 +180,19 @@ def segment(inference_config: InferenceConfig, device) -> None:
             ic.dataset_config.dataset_name]
     label = "segment" if not nucleus else (
         "segment (nucleus, device)" if want_device_nucleus(ic) else "segment (nucleus)")
+    if len(devices) > 1:
+        jobs = list(itertools.product(range(meta.num_samples), range(ic.num_bandwidths)))
+
+        def job(j: int) -> None:
+            sample, k = jobs[j]
+            raw_image = np.asarray(ds_raw[sample, 0]) if nucleus else None
+            ds_out[sample, k] = segment_sample(np.asarray(ds_in[sample, k]), raw_image, ic,
+                                               devices[j % len(devices)])
+
+        workers = max(2, min(len(devices), len(jobs)))
+        with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as pool:
+            list(progress(pool.map(job, range(len(jobs))), label, total=len(jobs)))
+        return
     for sample in progress(range(meta.num_samples), label, total=meta.num_samples):
         raw_image = np.asarray(ds_raw[sample, 0]) if nucleus else None
         for k in range(ic.num_bandwidths):

@@ -1,7 +1,6 @@
 """Training runtime: crops + pair sampling -> U-Net -> OCE loss -> Adam.
 
-Port of ``cellulus_tpu/train.py`` on one device (``train.py:646-1345``),
-2D and 3D. Each step runs
+Port of ``cellulus_tpu/train.py`` (``train.py:646-1345``), 2D and 3D. Each step runs
 the U-Net's training path (in 2D every 3x3 filter gradient through kernel
 K2 on the card; in 3D library convolutions, as in the JAX package),
 takes the OCE loss of the configured ``loss_mode`` ("pairs" with host or
@@ -15,14 +14,20 @@ threaded batch loader, and the loss is fetched one step late so the host
 does not wait for the step in flight. With ``steps_per_dispatch = K > 1``
 the loop runs in chunks of K steps (:class:`StepChunks`), on the card as
 one CUDA graph a chunk. Checkpoints are reference-format ``.pth`` files
-that ``infer`` reads.
+that ``infer`` reads; a run resumes from one of them or from the JAX
+package's ``.ckpt`` (its optax moments mapped onto Adam's).
 
-Options of the JAX package that are not on this path raise
-``NotImplementedError`` naming their ROADMAP item.
+Data-parallel training (``parallel/distributed.py``) runs one process a
+device: under ``torchrun``, in a process group the caller formed, or with
+``data_parallelism`` N > 1 (or several visible GPUs), N ranks that
+``train()`` spawns itself. Each rank steps on its share of the global
+batch; its key-driven draws are the global batch's, of which it keeps its
+own rows, and the gradients and loss terms are summed over the ranks.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import sys
 import time
@@ -39,12 +44,15 @@ from .datasets import BatchLoader, ConcatDataset, get_dataset
 from .datasets.elastic_device import elastic_deform_batch
 from .io import zarr
 from .models import (
+    adam_moments_from_jax,
     compute_geometry,
     init_unet_,
     load_state_dict,
     select_and_add_coordinates,
     unet_from_config,
 )
+from .parallel import distributed as dist
+from .parallel.mesh import local_devices
 from .utils.checkpoint import checkpoint_path, load_train_state, save_checkpoint, train_state
 from .utils.device import compute_dtype_for, generator_seed, resolve_device, seeded_generator
 from .utils.logger import get_logger
@@ -67,6 +75,10 @@ class TrainOptimizer:
     and its rate in device tensors; a milestone schedule sets the rate on
     the device from that count: no step reads anything on the host, and a
     step has the same arithmetic inside a graph and out of one.
+
+    With ``data_parallel``, :meth:`step` first sums the gradients (and the
+    loss terms it is given) over the process group's ranks, so the norm,
+    the clipping and the L2 term see the global batch's gradient.
     """
 
     def __init__(
@@ -78,8 +90,10 @@ class TrainOptimizer:
         lr_decay_factor: float = 0.1,
         grad_clip_norm: Optional[float] = None,
         log_grad_norm: bool = False,
+        data_parallel: bool = False,
     ):
         self.params = list(params)
+        self.data_parallel = data_parallel
         self.learning_rate = float(learning_rate)
         self.capturable = self.params[0].device.type == "cuda"
         lr = self.learning_rate
@@ -116,7 +130,11 @@ class TrainOptimizer:
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
+    def step(self, *totals: torch.Tensor):
+        """Update the parameters from their gradients; return ``totals`` (a
+        step's 0-dim loss terms), summed over the ranks when data-parallel."""
+        if self.data_parallel:
+            totals = dist.reduce_gradients(self.params, totals)
         if self.grad_clip_norm is not None:
             self.grad_norm = torch.nn.utils.clip_grad_norm_(self.params, self.grad_clip_norm)
         elif self.log_grad_norm:
@@ -132,12 +150,13 @@ class TrainOptimizer:
                 group["lr"] = lr
         if not self.capturable:
             self.adam.step()
-            return
+            return totals
         with warnings.catch_warnings():
             # torch warns that a capturable Adam steps outside a graph: the
             # steps of steps_per_dispatch = 1 do, by design
             warnings.filterwarnings("ignore", message=".*capturable=True.*")
             self.adam.step()
+        return totals
 
     def state_dict(self) -> Dict[str, Any]:
         state = self.adam.state_dict()
@@ -161,6 +180,18 @@ class TrainOptimizer:
                 st["step"] = st["step"].to(device=p.device if self.capturable else "cpu",
                                            dtype=torch.float32)
 
+    def load_jax_moments(self, moments: Dict[str, Any], names: List[str]) -> None:
+        """Restore the JAX package's Adam state (:func:`adam_moments_from_jax`:
+        ``count``, and ``exp_avg`` / ``exp_avg_sq`` by parameter name);
+        ``names`` are the parameters' names in this optimizer's order."""
+        state = self.adam.state_dict()
+        state["state"] = {
+            i: {"step": torch.tensor(float(moments["count"])),
+                "exp_avg": moments["exp_avg"][name], "exp_avg_sq": moments["exp_avg_sq"][name]}
+            for i, name in enumerate(names)
+        }
+        self.load_state_dict(state)
+
 
 def make_optimizer(
     params,
@@ -170,9 +201,10 @@ def make_optimizer(
     lr_decay_factor: float = 0.1,
     grad_clip_norm=None,
     log_grad_norm: bool = False,
+    data_parallel: bool = False,
 ) -> TrainOptimizer:
     return TrainOptimizer(params, learning_rate, weight_decay, lr_milestones,
-                          lr_decay_factor, grad_clip_norm, log_grad_norm)
+                          lr_decay_factor, grad_clip_norm, log_grad_norm, data_parallel)
 
 
 def _prep_raw(raw, input_scale, compute_dtype):
@@ -199,24 +231,29 @@ def make_train_step(model, optimizer, temperature: float, regularizer_weight: fl
         e_reference = select_and_add_coordinates(offsets, references)
         loss, oce, _ = oce_loss(e_anchor, e_reference, temperature, regularizer_weight)
         loss.backward()
-        optimizer.step()
-        return loss.detach(), oce.detach(), offsets.detach()
+        loss, oce = optimizer.step(loss.detach(), oce.detach())
+        return loss, oce, offsets.detach()
 
     return step
 
 
 def make_train_step_fused(model, optimizer, temperature: float, regularizer_weight: float,
                           pair_sampler, batch_size: int, compute_dtype=torch.float32,
-                          device="cpu", input_scale=None):
+                          device="cpu", input_scale=None, rows: slice = slice(None)):
     """Step with pairs drawn on the device: ``step(raw, generator) -> (loss,
     oce, offsets)``. Each anchor embedding is gathered once and broadcast
     over its R references, which are gathered from the detached offsets
-    (``train.py:186-206``): the same loss as the repeated-anchor layout."""
+    (``train.py:186-206``): the same loss as the repeated-anchor layout.
+
+    The pairs are drawn for the global batch of ``batch_size``; a
+    data-parallel rank keeps its ``rows`` (a slice) of them, as every
+    key-driven step does with its draws."""
     sample = pair_sampler.device_sampler_grouped(device)
 
     def step(raw, generator):
         raw = _prep_raw(raw, input_scale, compute_dtype)
         anchors, references = sample(generator, batch_size)
+        anchors, references = anchors[rows], references[rows]
         B, A, R, D = references.shape
         optimizer.zero_grad()
         offsets = model(raw, compute_dtype)
@@ -229,8 +266,8 @@ def make_train_step_fused(model, optimizer, temperature: float, regularizer_weig
             temperature, regularizer_weight,
         )
         loss.backward()
-        optimizer.step()
-        return loss.detach(), oce.detach(), offsets.detach()
+        loss, oce = optimizer.step(loss.detach(), oce.detach())
+        return loss, oce, offsets.detach()
 
     return step
 
@@ -284,7 +321,7 @@ def grid_anchor_offsets(offsets: torch.Tensor, jitter: torch.Tensor, k: int, str
 
 def make_train_step_grid(model, optimizer, temperature: float, regularizer_weight: float,
                          pair_sampler, batch_size: int, compute_dtype=torch.float32,
-                         device="cpu", input_scale=None):
+                         device="cpu", input_scale=None, rows: slice = slice(None)):
     """Stratified-anchor step (``cellulus_tpu/train.py:make_train_step_grid``):
     ``step(raw, generator, draws=None) -> (loss, oce, offsets)``.
 
@@ -296,7 +333,8 @@ def make_train_step_grid(model, optimizer, temperature: float, regularizer_weigh
     draws from ``generator`` (``draw(generator)``, the same order).
 
     The anchor embeddings are a strided read of the offsets field
-    (:func:`grid_anchor_offsets`), not a gather.
+    (:func:`grid_anchor_offsets`), not a gather. The draws are the global
+    batch's; a data-parallel rank keeps its ``rows`` of ``idx``.
     """
     stride, grid_dims, A, scale = grid_layout(pair_sampler)
     k, _, _ = _unbiased_region(pair_sampler)
@@ -312,25 +350,27 @@ def make_train_step_grid(model, optimizer, temperature: float, regularizer_weigh
 
     def step(raw, generator, draws=None):
         jitter, idx = draw(generator) if draws is None else draws
+        idx = idx[rows]
+        b = idx.shape[0]
         raw = _prep_raw(raw, input_scale, compute_dtype)
         anchors = grid_anchors(jitter, k, stride, grid_dims)
-        references = anchors[None, :, None, :] + table[idx]  # (B, A, R, D)
+        references = anchors[None, :, None, :] + table[idx]  # (b, A, R, D)
 
         optimizer.zero_grad()
         offsets = model(raw, compute_dtype)
         e_anchor = grid_anchor_offsets(offsets, jitter, k, stride, grid_dims)
         e_anchor = e_anchor + anchors.to(e_anchor.dtype)
         e_reference = select_and_add_coordinates(
-            offsets.detach(), references.reshape(batch_size, A * R, ndim)
-        ).reshape(batch_size, A, R, ndim)
+            offsets.detach(), references.reshape(b, A * R, ndim)
+        ).reshape(b, A, R, ndim)
         loss, oce, _ = oce_loss(
-            e_anchor[:, :, None, :].expand(batch_size, A, R, ndim), e_reference,
+            e_anchor[:, :, None, :].expand(b, A, R, ndim), e_reference,
             temperature, regularizer_weight,
         )
         loss = loss * scale
         loss.backward()
-        optimizer.step()
-        return loss.detach(), (oce * scale).detach(), offsets.detach()
+        loss, oce = optimizer.step(loss.detach(), (oce * scale).detach())
+        return loss, oce, offsets.detach()
 
     step.draw = draw
     return step
@@ -338,7 +378,7 @@ def make_train_step_grid(model, optimizer, temperature: float, regularizer_weigh
 
 def make_train_step_dense(model, optimizer, temperature: float, regularizer_weight: float,
                           pair_sampler, batch_size: int, compute_dtype=torch.float32,
-                          device="cpu", input_scale=None):
+                          device="cpu", input_scale=None, rows: slice = slice(None)):
     """Gather-free step (``cellulus_tpu/train.py:make_train_step_dense``):
     ``step(raw, generator, draws=None) -> (loss, oce, field)``.
 
@@ -351,9 +391,15 @@ def make_train_step_dense(model, optimizer, temperature: float, regularizer_weig
     x-first, mask (B, *unbiased))`` replaces the draws from ``generator``
     (``draw(generator)``: the offset indices, then the mask).
 
+    The R slices are one gather of the flattened field, its index built on
+    the device from the offsets (the JAX package's ``lax.dynamic_slice``
+    with traced starts): no step reads anything on the host, so a chunk of
+    steps can be one CUDA graph. The mask is the global batch's: a
+    data-parallel rank keeps its ``rows`` and scales by the global mask sum.
+
     EXPERIMENTAL, as in the JAX package: the shared offsets make per-step
     gradients about 10x noisier than the pair estimator, and training
-    stalls. The slices need the offsets on the host: one device sync a step.
+    stalls.
     """
     k, unbiased, area = _unbiased_region(pair_sampler)
     out = pair_sampler.output_shape
@@ -366,6 +412,13 @@ def make_train_step_dense(model, optimizer, temperature: float, regularizer_weig
     mesh = torch.meshgrid(*axes, indexing="ij")
     coord_grid = torch.stack([mesh[ndim - 1 - c] for c in range(ndim)], dim=-1)
     anchor_region = (slice(None),) + tuple(slice(k, k + u) for u in unbiased)
+    # flat index in the (*out) field of each unbiased-region position, and
+    # the flat step of one unit along each x-first offset component
+    strides = [math.prod(out[d + 1 :]) for d in range(ndim)]
+    region = torch.meshgrid(*[torch.arange(k, k + u, device=device) for u in unbiased],
+                            indexing="ij")
+    base = sum(r * st for r, st in zip(region, strides)).reshape(-1)
+    offset_strides = torch.tensor([strides[ndim - 1 - c] for c in range(ndim)], device=device)
 
     def draw(generator):
         idx = torch.randint(0, table.shape[0], (R,), generator=generator, device=device)
@@ -377,26 +430,25 @@ def make_train_step_dense(model, optimizer, temperature: float, regularizer_weig
         offs, mask = draw(generator) if draws is None else draws
         raw = _prep_raw(raw, input_scale, compute_dtype)
         n_anchor_samples = torch.clamp(mask.sum(), min=1.0)
+        mask = mask[rows]
+        b = mask.shape[0]
         optimizer.zero_grad()
         field = model(raw, compute_dtype)
         e = field + coord_grid
-        e_sg = e.detach()
         e_anchor = e[anchor_region]
-        oce = torch.zeros((), dtype=torch.float32, device=e.device)
-        for o in offs.tolist():
-            # o is x-first: spatial axis d starts at k + o[ndim - 1 - d]
-            e_ref = e_sg[(slice(None),) + tuple(
-                slice(k + o[ndim - 1 - d], k + o[ndim - 1 - d] + unbiased[d])
-                for d in range(ndim))]
-            diff = e_anchor - e_ref
-            sq = (diff * diff).sum(dim=-1)
-            oce = oce + (mask * (1.0 - torch.exp(-sq / temperature))).sum()
+        # (R, U) flat positions of the references: the anchors' shifted by o
+        index = base[None, :] + (offs.to(base.device) * offset_strides).sum(dim=-1)[:, None]
+        e_ref = e.detach().reshape(b, -1, ndim).index_select(1, index.reshape(-1))
+        e_ref = e_ref.reshape(b, R, *unbiased, ndim)
+        diff = e_anchor[:, None] - e_ref
+        sq = (diff * diff).sum(dim=-1)
+        oce = (mask[:, None] * (1.0 - torch.exp(-sq / temperature))).sum()
         reg = regularizer_weight * R * (mask * torch.linalg.vector_norm(e_anchor, dim=-1)).sum()
         scale = (batch_size * pair_sampler.n_anchors) / n_anchor_samples
         loss = (oce + reg) * scale
         loss.backward()
-        optimizer.step()
-        return loss.detach(), (oce * scale).detach(), field.detach()
+        loss, oce = optimizer.step(loss.detach(), (oce * scale).detach())
+        return loss, oce, field.detach()
 
     step.draw = draw
     return step
@@ -513,30 +565,33 @@ class StepChunks:
         statics = [torch.stack(kind).to(self.device) for kind in zip(*inputs)]
         snapshot = self._snapshot()
         self._seed(it_start, k)
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            for j in range(min(self.WARMUP, k)):
-                self._one([s[j] for s in statics], it_start + j, self.generators[j])
-        current.wait_stream(side)
-        self._restore(snapshot)
-        losses = torch.zeros(k, dtype=torch.float32, device=self.device)
-        oces = torch.zeros(k, dtype=torch.float32, device=self.device)
-        grad_norm = None
-        if self.optimizer.log_grad_norm:
-            grad_norm = torch.zeros((), dtype=torch.float32, device=self.device)
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators[:k]:
-            graph.register_generator_state(gen)
-        with torch.cuda.graph(graph):
-            for j in range(k):
-                loss, oce, _ = self._one([s[j] for s in statics], it_start + j,
-                                         self.generators[j])
-                losses[j].copy_(loss)
-                oces[j].copy_(oce)
-            if grad_norm is not None:
-                grad_norm.copy_(self.optimizer.grad_norm)
+        with torch.cuda.device(self.device):
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                for j in range(min(self.WARMUP, k)):
+                    self._one([s[j] for s in statics], it_start + j, self.generators[j])
+            current.wait_stream(side)
+            self._restore(snapshot)
+            losses = torch.zeros(k, dtype=torch.float32, device=self.device)
+            oces = torch.zeros(k, dtype=torch.float32, device=self.device)
+            grad_norm = None
+            if self.optimizer.log_grad_norm:
+                grad_norm = torch.zeros((), dtype=torch.float32, device=self.device)
+            graph = torch.cuda.CUDAGraph()
+            for gen in self.generators[:k]:
+                graph.register_generator_state(gen)
+            # on `side`, a stream of this device (torch's default capture
+            # stream belongs to whichever device was current at its first use)
+            with torch.cuda.graph(graph, stream=side):
+                for j in range(k):
+                    loss, oce, _ = self._one([s[j] for s in statics], it_start + j,
+                                             self.generators[j])
+                    losses[j].copy_(loss)
+                    oces[j].copy_(oce)
+                if grad_norm is not None:
+                    grad_norm.copy_(self.optimizer.grad_norm)
         return graph, statics, (losses, oces, grad_norm)
 
 
@@ -635,21 +690,19 @@ def check_3d_density_envelope(
         )
 
 
-def _check_options(train_config) -> None:
-    """Raise for the JAX package's options that are not ported yet (dense
-    loss in chunks, multi-GPU), and for its two invalid combinations
-    (``cellulus_tpu/train.py:683-705``); warn that dense loss does not
-    learn."""
-    if train_config.steps_per_dispatch > 1 and train_config.loss_mode == "dense":
-        raise NotImplementedError(
-            "loss_mode='dense' with steps_per_dispatch > 1 is not ported: the dense "
-            "step reads its reference offsets on the host (offs.tolist()) every "
-            "step, which a CUDA graph cannot capture (ROADMAP: M9.3, dense)"
-        )
-    if (train_config.data_parallelism or 1) > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "data-parallel and multi-process training are not ported yet "
-            "(ROADMAP: M13, multi-GPU)"
+def _check_options(train_config, device, primary: bool = True) -> None:
+    """Raise for the JAX package's two invalid combinations
+    (``cellulus_tpu/train.py:683-705``) and for chunks that no CUDA graph can
+    hold (a gloo group's reduce of CUDA tensors goes through the host); warn
+    that dense loss does not learn."""
+    if (train_config.steps_per_dispatch > 1 and dist.in_group()
+            and torch.device(device).type == "cuda"
+            and torch.distributed.get_backend() != "nccl"):
+        raise ValueError(
+            f"steps_per_dispatch={train_config.steps_per_dispatch} on CUDA needs the NCCL "
+            f"backend: the {torch.distributed.get_backend()} group's all_reduce of CUDA "
+            "tensors goes through the host and cannot be captured in a CUDA graph; use NCCL "
+            "(one rank a GPU) or steps_per_dispatch = 1"
         )
     if train_config.loss_mode == "dense":
         warnings.warn(
@@ -659,8 +712,9 @@ def _check_options(train_config) -> None:
             "or 'pairs'.",
             stacklevel=3,
         )
-        print("WARNING: loss_mode='dense' is experimental and does not reach "
-              "training quality; prefer 'grid' or 'pairs'.")
+        if primary:
+            print("WARNING: loss_mode='dense' is experimental and does not reach "
+                  "training quality; prefer 'grid' or 'pairs'.")
     native = train_config.transfer_precision == "native"
     if native and train_config.elastic_deform and not train_config.elastic_on_device:
         raise ValueError(
@@ -677,19 +731,71 @@ def _check_options(train_config) -> None:
         )
 
 
+def data_parallel_ranks(train_config) -> int:
+    """How many ranks :func:`train` starts outside a process group:
+    ``data_parallelism``, or every visible GPU when it is None (one on the
+    CPU), lowered to the largest divisor of ``batch_size``
+    (``cellulus_tpu/train.py:799-815``). More GPUs than are visible raises
+    ``ValueError``."""
+    device = torch.device(train_config.device)
+    n = train_config.data_parallelism
+    if n is None:
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = max(1, int(n))
+    while train_config.batch_size % n:
+        n -= 1
+    if n > 1:
+        local_devices(n, device)  # raises when fewer GPUs are visible
+    return n
+
+
 def train(experiment_config: ExperimentConfig,
           step_times: Optional[List[float]] = None) -> Dict[str, Any]:
     """Run training as configured; return the final state (the checkpoint's
     keys). ``step_times``, when given, receives the host clock at each
-    iteration's loss fetch (each fetch waits for that step's device work)."""
-    print(experiment_config)
+    iteration's loss fetch (each fetch waits for that step's device work).
+
+    Data-parallel when this process is in a process group (formed by the
+    caller, or by :func:`~cellulus_tpu_torch.parallel.distributed.initialize`
+    from ``torchrun``'s environment: the rank then trains on
+    ``cuda:{LOCAL_RANK}``); outside one with :func:`data_parallel_ranks` N >
+    1, N ranks are spawned on ``localhost`` and rank 0's state returned."""
+    train_config = experiment_config.train_config
+    device = dist.initialize(train_config.device) or train_config.device
+    if not dist.in_group():
+        world = data_parallel_ranks(train_config)
+        if world > 1:
+            return dist.spawn(_train_rank, world, train_config.device, experiment_config)
+    return _train(experiment_config, device, step_times)
+
+
+def _train_rank(rank: int, experiment_config: ExperimentConfig) -> Dict[str, Any]:
+    """One spawned rank of :func:`train`, on its own device (the process's
+    current one)."""
+    device = local_devices(dist.process_count(), experiment_config.train_config.device)[rank]
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return _train(experiment_config, device)
+
+
+def _train(experiment_config: ExperimentConfig, device,
+           step_times: Optional[List[float]] = None) -> Dict[str, Any]:
     train_config = experiment_config.train_config
     model_config = experiment_config.model_config
-    _check_options(train_config)
+    rank = dist.process_index()
+    primary = rank == 0
+    data_parallel = dist.in_group()
+    if primary:
+        print(experiment_config)
+    _check_options(train_config, device, primary)
+    local_batch = dist.local_batch_size(train_config.batch_size)
+    # this rank's rows of the global batch's draws
+    rows = slice(rank * local_batch, (rank + 1) * local_batch)
     native_transfer = train_config.transfer_precision == "native"
     key_driven = train_config.device_pair_sampling or train_config.loss_mode != "pairs"
     elastic_device = train_config.elastic_on_device and train_config.elastic_deform
-    device = resolve_device(train_config.device)
+    device = resolve_device(device)
+    say = print if primary else (lambda *args, **kwargs: None)
     compute_dtype = compute_dtype_for(train_config.precision)
     if train_config.precision == "float32":
         torch.backends.cudnn.allow_tf32 = False
@@ -710,7 +816,9 @@ def train(experiment_config: ExperimentConfig,
             kappa=train_config.kappa,
             normalization_factor=experiment_config.normalization_factor,
             output_shape=geometry.output_size,
-            seed=train_config.seed,
+            # rank-disjoint crop streams: each rank samples its own share of
+            # the global batch (cellulus_tpu/train.py:720)
+            seed=train_config.seed + 10007 * rank,
             # host pairs feed only the host-sampled pair step
             sample_pairs=not key_driven,
             normalize=not native_transfer,
@@ -746,6 +854,7 @@ def train(experiment_config: ExperimentConfig,
         lr_decay_factor=train_config.lr_decay_factor,
         grad_clip_norm=train_config.grad_clip_norm,
         log_grad_norm=train_config.log_grad_norm,
+        data_parallel=data_parallel,
     )
 
     logger_keys = ["loss", "oce_loss"]
@@ -760,23 +869,34 @@ def train(experiment_config: ExperimentConfig,
     # mean loss exceeds 1e6 would otherwise never write best_loss.pth
     lowest_loss = float("inf")
     if model_config.checkpoint is not None:
-        print(f"Resuming model from {model_config.checkpoint}")
+        say(f"Resuming model from {model_config.checkpoint}")
         state = load_train_state(model_config.checkpoint)
         load_state_dict(model, state["model_state_dict"])
         if state.get("optim_state_dict"):
             optimizer.load_state_dict(state["optim_state_dict"])
+        elif state.get("jax_opt_leaves") is not None:
+            # the JAX package's optax state (a .ckpt)
+            moments = adam_moments_from_jax(
+                state["jax_params"], state["jax_opt_leaves"], train_config.log_grad_norm,
+                bool(train_config.lr_milestones))
+            if moments is not None:
+                optimizer.load_jax_moments(moments, [n for n, _ in model.named_parameters()])
         start_iteration = int(state.get("iteration", -1)) + 1
         lowest_loss = float(state.get("lowest_loss", 1e6))
         if state.get("logger_data"):
             logger.data = {k: list(state["logger_data"].get(k, [])) for k in logger.keys}
 
+    if data_parallel:
+        dist.broadcast_parameters(model)
+
     def to_device(raw_np):
         return torch.from_numpy(np.ascontiguousarray(np.moveaxis(raw_np, 1, -1))).to(device)
 
     # validation: a fixed two-batch set, its loss logged at the best-model
-    # cadence (the reference accepts validate_data_config but never uses it)
+    # cadence (the reference accepts validate_data_config but never uses it);
+    # data-parallel, the primary validates on its own copy of the parameters
     val_batches = None
-    if train_config.validate_data_config is not None:
+    if train_config.validate_data_config is not None and primary:
         try:
             val_dataset = get_dataset(
                 dataset_config=train_config.validate_data_config,
@@ -819,20 +939,22 @@ def train(experiment_config: ExperimentConfig,
         make = {"grid": make_train_step_grid, "dense": make_train_step_dense}.get(
             train_config.loss_mode, make_train_step_fused)
         step = make(*loss_args, dataset.sampler, train_config.batch_size, compute_dtype,
-                    device, input_scale=input_scale)
+                    device, input_scale=input_scale, rows=rows)
     else:
         step = make_train_step(*loss_args, compute_dtype, input_scale=input_scale)
     if elastic_device:
         # the warp runs in front of the key-driven step, drawing from its
         # generator: the loader ships padded crops
         deform = elastic_deform_batch(crop_size, train_config.control_point_spacing,
-                                      train_config.control_point_jitter)
+                                      train_config.control_point_jitter,
+                                      batch_size=train_config.batch_size, rows=rows)
         inner_step = step
 
         def step(raw, generator):
             return inner_step(deform(raw, generator), generator)
 
-    loader = BatchLoader(dataset, train_config.batch_size, num_workers=train_config.num_workers)
+    # each rank loads its share of the global batch
+    loader = BatchLoader(dataset, local_batch, num_workers=train_config.num_workers)
 
     epoch_loss = 0.0
     num_iterations = 0
@@ -846,16 +968,21 @@ def train(experiment_config: ExperimentConfig,
             loss_f, oce_f = float(loss_t), float(oce_t)
         if step_times is not None:
             step_times.append(time.perf_counter())
-        print(f"===> iteration: {it}, loss: {loss_f:.6f}, oce loss: {oce_f:.6f}")
-        logger.add("loss", loss_f)
-        logger.add("oce_loss", oce_f)
-        if len(entry) > 3:
-            logger.add("grad_norm", float(entry[3]))
-        logger.step()
+        if primary:
+            # the loss is the global batch's on every rank; the primary
+            # prints it and owns loss.csv
+            print(f"===> iteration: {it}, loss: {loss_f:.6f}, oce loss: {oce_f:.6f}")
+            logger.add("loss", loss_f)
+            logger.add("oce_loss", oce_f)
+            if len(entry) > 3:
+                logger.add("grad_norm", float(entry[3]))
+            logger.step()
         epoch_loss += loss_f
         num_iterations += 1
 
     def save(iteration: int, is_lowest: bool = False) -> None:
+        if not primary:
+            return
         save_checkpoint(
             checkpoint_path(iteration, is_lowest),
             train_state(iteration, lowest_loss, model, optimizer, logger.data),
@@ -883,13 +1010,14 @@ def train(experiment_config: ExperimentConfig,
             if mean_loss < lowest_loss:
                 lowest_loss = mean_loss
                 save(iteration, is_lowest=True)
-                print(f"Best model weights saved at iteration {iteration}")
+                say(f"Best model weights saved at iteration {iteration}")
             epoch_loss = 0.0
             num_iterations = 0
         if do_ckpt:
             save(iteration)
-            print(f"Checkpoint saved at iteration {iteration}")
-        if do_snapshot and offsets is not None:
+            say(f"Checkpoint saved at iteration {iteration}")
+        if do_snapshot and offsets is not None and primary:
+            # the primary's snapshot holds its own rows of the global batch
             meta = getattr(dataset, "meta", None)
             spatial_names = (
                 [n for n in meta.axis_names if n not in ("s", "c")] if meta is not None else None
@@ -906,20 +1034,34 @@ def train(experiment_config: ExperimentConfig,
     # 1 s margin absorbs coarse-mtime filesystems).
     stop_path = Path(train_config.stop_file) if train_config.stop_file else None
     stop_epoch = time.time() - 1.0
-    if stop_path is not None and stop_path.exists():
+    if stop_path is not None and primary and stop_path.exists():
         warnings.warn(
             f"stop file {stop_path} predates this run and is ignored; "
             "touch it again to request a graceful stop"
         )
         stop_epoch = max(stop_epoch, stop_path.stat().st_mtime + 1e-3)
 
-    def stop_requested() -> bool:
-        if stop_path is None:
-            return False
+    def stop_file_touched() -> bool:
         try:
             return stop_path.stat().st_mtime >= stop_epoch
         except OSError:
             return False
+
+    last_stop_check = start_iteration - 1
+
+    def stop_requested(iteration: int) -> bool:
+        nonlocal last_stop_check
+        if stop_path is None:
+            return False
+        if not data_parallel:
+            return stop_file_touched()
+        # every rank must leave at the same step (a rank that stops alone
+        # leaves the others waiting in the reduce): the primary's verdict,
+        # broadcast at the best-model cadence (cellulus_tpu/train.py:1163-1180)
+        if iteration - last_stop_check < max(1, train_config.save_best_model_every):
+            return False
+        last_stop_check = iteration
+        return dist.broadcast_flag(primary and stop_file_touched(), device)
 
     def run_chunks(batches) -> int:
         """The loop in chunks of ``steps_per_dispatch`` steps
@@ -953,15 +1095,15 @@ def train(experiment_config: ExperimentConfig,
             raw_np = chunk[-1][0]
             if do_best or do_ckpt or do_snapshot:
                 offsets = None
-                if do_snapshot:
+                if do_snapshot and primary:
                     with torch.no_grad():
                         offsets = model(_prep_raw(to_device(raw_np), input_scale, compute_dtype),
                                         compute_dtype)
                 cadence_actions(iteration, offsets, raw_np, do_best, do_ckpt, do_snapshot)
-            if stop_requested():
+            if stop_requested(iteration):
                 cadence_actions(iteration, None, raw_np, do_best=False, do_ckpt=not do_ckpt,
                                 do_snapshot=False)
-                print(f"Stop file {stop_path} found: checkpointed at iteration "
+                say(f"Stop file {stop_path} found: checkpointed at iteration "
                       f"{iteration}, exiting the training loop")
                 break
             it = chunk_end
@@ -1004,24 +1146,26 @@ def train(experiment_config: ExperimentConfig,
                 if is_cadence:
                     consume(pending)
                     pending = None
-                    if elastic_device and iteration % train_config.save_snapshot_every == 0:
+                    if (elastic_device and primary
+                            and iteration % train_config.save_snapshot_every == 0):
                         # the step's offsets describe the warped crop: snapshot
                         # the padded crop with its own forward
                         with torch.no_grad():
                             offsets = model(_prep_raw(raw, input_scale, compute_dtype),
                                             compute_dtype)
                     cadence_actions(iteration, offsets, raw_np)
-                if stop_requested():
+                if stop_requested(iteration):
                     if pending is not None:
                         consume(pending)
                         pending = None
                     cadence_actions(iteration, None, raw_np, do_best=False,
                                     do_ckpt=not is_ckpt, do_snapshot=False)
-                    print(f"Stop file {stop_path} found: checkpointed at iteration "
+                    say(f"Stop file {stop_path} found: checkpointed at iteration "
                           f"{iteration}, exiting the training loop")
                     break
 
-    logger.close()
+    if primary:
+        logger.close()
     return train_state(iteration, lowest_loss, model, optimizer, logger.data)
 
 

@@ -10,7 +10,8 @@ place with ``os.replace``, so a reader never sees half a checkpoint
 
 Reading goes by a file's content, not its suffix (:func:`checkpoint_format`):
 a zip or a pickle is a torch ``.pth``, a msgpack map is the JAX package's
-``.ckpt`` (``utils/msgpack.py``). :func:`resolve_checkpoint` is the one rule
+``.ckpt`` (``utils/msgpack.py``), for inference and for a training run
+to resume from. :func:`resolve_checkpoint` is the one rule
 for a configured ``X.ckpt`` that does not exist while ``X.pth`` does.
 """
 
@@ -23,11 +24,6 @@ from typing import Any, Dict, Optional
 import torch
 
 from .msgpack import is_msgpack_map, unpackb
-
-# the queue item that would let train() resume from a JAX-package .ckpt
-JAX_RESUME_ITEM = ("ROADMAP: train resume from a JAX .ckpt (optax opt_leaves -> "
-                   "torch Adam)")
-
 
 def save_checkpoint(path, state: Dict[str, Any]) -> Path:
     path = Path(path)
@@ -101,11 +97,22 @@ def resolve_checkpoint(path, announce: bool = True) -> Optional[Path]:
 
 
 def load_train_state(path) -> Dict[str, Any]:
-    """A ``.pth`` train state for ``train()`` to resume from. A JAX-package
-    ``.ckpt`` is refused: its optimizer state is optax's, not torch Adam's."""
-    if checkpoint_format(path) == "jax":
-        raise ValueError(
-            f"{path} is a JAX-package checkpoint: resuming training from it is not "
-            f"ported ({JAX_RESUME_ITEM}); infer and export read it"
-        )
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """A train state for ``train()`` to resume from: a ``.pth`` as saved, or
+    the JAX package's ``.ckpt`` with its weights as ``model_state_dict`` and,
+    in place of ``optim_state_dict``, its params tree and optax leaves
+    (``jax_params``, ``jax_opt_leaves``), which
+    :func:`~cellulus_tpu_torch.models.adam_moments_from_jax` maps for the
+    configured optimizer."""
+    if checkpoint_format(path) != "jax":
+        return torch.load(path, map_location="cpu", weights_only=True)
+    from ..models.convert import state_dict_from_jax_params
+
+    state = read_jax_checkpoint(path)
+    return {
+        "iteration": int(state.get("iteration", -1)),
+        "lowest_loss": float(state.get("lowest_loss", 1e6)),
+        "logger_data": {k: list(v) for k, v in state.get("logger_data", {}).items()},
+        "model_state_dict": state_dict_from_jax_params(state["params"]),
+        "jax_params": state["params"],
+        "jax_opt_leaves": state.get("opt_leaves"),
+    }

@@ -132,12 +132,27 @@ Phases, each failing the run (non-zero exit) if it fails:
     ``[sweep]``: ``checkpoint_sweep`` (pipelined, nucleus) over the
     checkpoints [hela] left and a truncated copy: an error row for the copy,
     best_loss.pth's row equal to [hela]'s nucleus F1 and SEG;
-16. the kernels line (JSON, one row per kernel and input type; K1 at both
+16. multi-GPU and the last training options, on the one card:
+    ``[m13-predict]`` after ``[wide-main]`` (examples/2d's model in bf16 on
+    ``[main]``'s samples over the device list ``["cuda:0", "cuda:0"]``: the
+    tile batch split over it bit-equal to one device, ``spatial_shards = 2``
+    against the tiled path at ``p_salt_pepper = 0``, detect round-robin
+    equal to serial); ``[resume-ckpt]`` after ``[ckpt]`` (``[train]``'s
+    state as a flax-format ``.ckpt`` with its Adam state as optax leaves, 3
+    steps resumed from it and from the ``.pth``: ``loss.csv`` bit-equal);
+    ``[dense-spd]`` after ``[spd]`` (dense loss at examples/2d's width as a
+    K = 4 CUDA graph against eager steps, ``[spd]``'s bars, ms a step, and
+    ``train()`` in dense chunks); ``[dp]`` (two gloo ranks on ``cuda:0``
+    against one rank on the whole batch; one NCCL rank whose K = 4 graph
+    holds the all_reduce, against eager steps and against no group);
+17. the kernels line (JSON, one row per kernel and input type; K1 at both
     widths and at cin = 3, with its launches by path (main, pipelined,
-    sweep, ckpt, export, mc); K2 at Ci = 3 and K2's
-    launches by path, ``[spd]``'s graphed runs counted as warm-up launches
-    plus captured calls times replays; the fit at d = 2 and d = 3 with its
-    launches by path and on each new detect path), then the last line
+    sweep, ckpt, export, mc, m13-predict); K2 at Ci = 3 and K2's
+    launches by path (dense-spd, resume-ckpt and dp among them),
+    ``[spd]``'s graphed runs counted as warm-up launches plus captured
+    calls times replays; the fit at d = 2 and d = 3 with its launches by
+    path (m13-predict's round-robin detect among them) and on each new
+    detect path), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Needs CUDA: without it the script exits non-zero and prints no result.
@@ -147,6 +162,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib.util
 import json
 import math
@@ -194,6 +210,7 @@ from cellulus_tpu_torch.train import (
 )
 from cellulus_tpu_torch.models import UNet, compute_geometry, load_checkpoint, tta_embeddings
 from cellulus_tpu_torch.models.geometry import conv_pass_inputs
+from cellulus_tpu_torch.detect import detect as detect_stage
 from cellulus_tpu_torch.detect import detect_sample, mean_center_embeddings, sample_rng
 from cellulus_tpu_torch.infer import PIPELINED_STAGE, checkpoint_sweep
 from cellulus_tpu_torch.ops import mean_shift as msops
@@ -220,6 +237,7 @@ from cellulus_tpu_torch.ops.nucleus import nucleus_partition_device, otsu_per_id
 from cellulus_tpu_torch.ops.otsu import threshold_otsu
 from cellulus_tpu_torch.predict import predict, predict_sample, tile_origins
 from cellulus_tpu_torch.segment import cell_segment_sample, nucleus_partition
+from cellulus_tpu_torch.parallel import distributed as dist_mod
 from cellulus_tpu_torch.utils import kernels
 from cellulus_tpu_torch.utils.profiling import perf_report, reset_perf
 
@@ -1530,10 +1548,14 @@ class _RecordedPairs:
 
 
 def _spd_setup(kind, net, dtype, device, batch, crop, model, density, kappa,
-               count_mode="reference", elastic=False, input_scale=None, record=False):
-    """A step of ``kind`` ("pairs" with host pairs, "device_pairs", "grid")
-    on ``net`` with a fresh optimizer (Adam capturable on the card, as in
-    ``train``); returns ``(step, optimizer, key_driven, draws, trace)``.
+               count_mode="reference", elastic=False, input_scale=None, record=False,
+               data_parallel=False, rows=slice(None)):
+    """A step of ``kind`` ("pairs" with host pairs, "device_pairs", "grid",
+    "dense") on ``net`` with a fresh optimizer (Adam capturable on the card,
+    as in ``train``; with ``data_parallel`` it sums the gradients over the
+    process group first, and a device-pairs step keeps ``rows`` of the
+    batch's draws); returns ``(step, optimizer, key_driven, draws,
+    trace)``.
     ``draws`` receives each step's draws (the pair sampler's, or grid's
     (jitter, idx), then the warp's (rotation, scale, control points)).
     ``elastic``: the warp runs on the card in front of the step, drawing
@@ -1544,15 +1566,17 @@ def _spd_setup(kind, net, dtype, device, batch, crop, model, density, kappa,
     captured step writes them at every replay)."""
     out = tuple(compute_geometry(crop, model["downsampling_factors"]).output_size)
     sampler = PairSampler(out, density=density, kappa=kappa, count_mode=count_mode)
-    opt = make_optimizer(net.parameters(), LOSS_MODE_LR)
+    opt = make_optimizer(net.parameters(), LOSS_MODE_LR, data_parallel=data_parallel)
     trace = []
     if record:
         update = opt.step
 
-        def step_and_record():
-            trace.append(([p.detach().clone() for p in opt.params],
-                          [p.grad.detach().clone() for p in opt.params]))
-            update()
+        def step_and_record(*totals):
+            params = [p.detach().clone() for p in opt.params]
+            totals = update(*totals)
+            # the gradients the update used (summed over the group's ranks)
+            trace.append((params, [p.grad.detach().clone() for p in opt.params]))
+            return totals
 
         opt.step = step_and_record
     if kind == "pairs":
@@ -1560,11 +1584,11 @@ def _spd_setup(kind, net, dtype, device, batch, crop, model, density, kappa,
     if kind == "device_pairs":
         recorded = _RecordedPairs(sampler)
         step = make_train_step_fused(net, opt, 10.0, 1e-5, recorded, batch, dtype, device,
-                                     input_scale)
+                                     input_scale, rows)
         draws = recorded.draws
     else:
-        inner = make_train_step_grid(net, opt, 10.0, 1e-5, sampler, batch, dtype, device,
-                                     input_scale)
+        make = make_train_step_dense if kind == "dense" else make_train_step_grid
+        inner = make(net, opt, 10.0, 1e-5, sampler, batch, dtype, device, input_scale)
         draws = []
 
         def step(raw, generator):
@@ -1620,7 +1644,8 @@ def _spd_batches(kind, batch, crop, model, density, kappa, count_mode="reference
 
 
 def _spd_run(kind, dtype, graphed, model, state, batches, crop, density, kappa,
-             count_mode="reference", elastic=False, stale=False, record=False):
+             count_mode="reference", elastic=False, stale=False, record=False,
+             data_parallel=False):
     """SPD_STEPS steps in chunks of SPD_K from ``state``; returns ``(losses,
     parameters, draws by step, chunks, K2 calls, trace by step)``, the trace
     (each step's starting parameters and gradients) when ``record``.
@@ -1632,7 +1657,7 @@ def _spd_run(kind, dtype, graphed, model, state, batches, crop, density, kappa,
     input_scale = _spd_input_scale(batches)
     step, opt, key_driven, draws, trace = _spd_setup(
         kind, net, dtype, device, batches[0][0].shape[0], crop, model, density, kappa,
-        count_mode, elastic, input_scale, record)
+        count_mode, elastic, input_scale, record, data_parallel)
     chunks = StepChunks(step, net, opt, device, key_driven, SPD_SEED, graphed=graphed)
     if stale:
         seed = chunks._seed
@@ -1658,7 +1683,7 @@ def _spd_input_scale(batches):
 
 
 def _spd_step_gradients(kind, dtype, model, params, batch, iteration, crop, density, kappa,
-                        count_mode, elastic):
+                        count_mode, elastic, data_parallel=False):
     """The gradients of one eager step (iteration ``iteration``, its draws
     from the loop's generator) from the parameters ``params``."""
     device = torch.device(DEVICE)
@@ -1668,7 +1693,7 @@ def _spd_step_gradients(kind, dtype, model, params, batch, iteration, crop, dens
             p.copy_(v)
     step, opt, key_driven, _, trace = _spd_setup(
         kind, net, dtype, device, batch[0].shape[0], crop, model, density, kappa, count_mode,
-        elastic, _spd_input_scale([batch]), record=True)
+        elastic, _spd_input_scale([batch]), record=True, data_parallel=data_parallel)
     StepChunks(step, net, opt, device, key_driven, SPD_SEED, graphed=False).run(iteration, [batch])
     return trace[0][1]
 
@@ -1704,7 +1729,7 @@ def _deterministic():
 
 
 def _spd_check(name, kind, dtype, model, crop, batch, density, kappa, count_mode="reference",
-               control=False, elastic=False, native=False):
+               control=False, elastic=False, native=False, data_parallel=False, tag="[spd]"):
     """The graphed chunk (SPD_K steps, two chunks) against eager steps from
     one state, with the same optimizer (Adam capturable in both, as train()
     runs it on the card at every K). Two bars:
@@ -1728,33 +1753,36 @@ def _spd_check(name, kind, dtype, model, crop, batch, density, kappa, count_mode
        gradients by far more than rounding.
 
     ``elastic``/``native``: padded crops (uint16 when ``native``) warped on
-    the card in front of the step. Returns the graphed run's K2 launches
-    (warm-up steps and the captured calls times the replays)."""
+    the card in front of the step; ``data_parallel``: every optimizer sums
+    its gradients over this process's group (``[dp]``), so the graph holds
+    the all_reduce. Returns the graphed run's K2 launches (warm-up steps and
+    the captured calls times the replays)."""
     torch.manual_seed(SPD_SEED)
     state = random_unet(SPD_SEED, num_spatial_dims=len(crop), **model).state_dict()
     batches = _spd_batches(kind, batch, crop, model, density, kappa, count_mode,
                            elastic=elastic, native=native)
     args = (model, state, batches, crop, density, kappa, count_mode, elastic)
+    dp = {"data_parallel": data_parallel}
     with _deterministic():
-        eager = [_spd_run(kind, dtype, False, *args) for _ in range(3)]
-        graph = _spd_run(kind, dtype, True, *args)
-        stale = _spd_run(kind, dtype, True, *args, stale=True) if control else None
+        eager = [_spd_run(kind, dtype, False, *args, **dp) for _ in range(3)]
+        graph = _spd_run(kind, dtype, True, *args, **dp)
+        stale = _spd_run(kind, dtype, True, *args, stale=True, **dp) if control else None
     own = max(_spd_distance(a[:2], b[:2]) for i, a in enumerate(eager) for b in eager[i + 1:])
     dist = float(np.median([_spd_distance(graph[:2], e[:2]) for e in eager]))
     bar = 2 * own
     if dist > bar:
-        fail(f"[spd] {name}: the graph is {dist:.3g} from eager steps, eager {own:.3g} from "
+        fail(f"{tag} {name}: the graph is {dist:.3g} from eager steps, eager {own:.3g} from "
              f"itself (bar {bar:.3g}; cuDNN off, deterministic kernels)")
     same_draws = len(graph[2]) == len(eager[0][2]) == SPD_STEPS and all(
         len(g) == len(e) and all(torch.equal(x, y) for x, y in zip(g, e))
         for g, e in zip(graph[2], eager[0][2]))
     if kind != "pairs" and not same_draws:
-        fail(f"[spd] {name}: the graph's draws differ from the eager steps'")
+        fail(f"{tag} {name}: the graph's draws differ from the eager steps'")
 
-    on_eager = _spd_run(kind, dtype, False, *args)
-    on_graph = _spd_run(kind, dtype, True, *args, record=True)
+    on_eager = _spd_run(kind, dtype, False, *args, **dp)
+    on_graph = _spd_run(kind, dtype, True, *args, record=True, **dp)
     cudnn_dist = _spd_distance(on_graph[:2], on_eager[:2])
-    step_args = (crop, density, kappa, count_mode, elastic)
+    step_args = (crop, density, kappa, count_mode, elastic, data_parallel)
     worst = (0.0, 0, 0.0, 0.0)  # (graph / other, step, graph, other)
     for j, (params_j, grads_j) in enumerate(on_graph[5]):
         eager_j = _spd_step_gradients(kind, dtype, model, params_j, batches[j], j, *step_args)
@@ -1762,17 +1790,17 @@ def _spd_check(name, kind, dtype, model, crop, batch, density, kappa, count_mode
             other_j = _spd_step_gradients(kind, dtype, model, params_j, batches[j], j, *step_args)
         d_graph, d_other = _relative_l2(grads_j, eager_j), _relative_l2(other_j, eager_j)
         if not d_graph <= d_other:
-            fail(f"[spd] {name}, cuDNN on: step {j}'s gradients in the graph are {d_graph:.3g} "
+            fail(f"{tag} {name}, cuDNN on: step {j}'s gradients in the graph are {d_graph:.3g} "
                  f"from an eager step's from the same parameters, above that step's "
                  f"{d_other:.3g} from one with cuDNN off")
         ratio = d_graph / d_other if d_other else 0.0
         worst = max(worst, (ratio, j, d_graph, d_other))
     if len(on_graph[5]) != SPD_STEPS:
-        fail(f"[spd] {name}: {len(on_graph[5])} steps traced, not {SPD_STEPS}")
+        fail(f"{tag} {name}: {len(on_graph[5])} steps traced, not {SPD_STEPS}")
     chunks, calls = on_graph[3], on_graph[4]
     per_step = on_eager[4] // SPD_STEPS
     launches = calls + per_step * SPD_K * (sum(chunks.replays.values()) - len(chunks.replays))
-    line = (f"[spd] {name}: K = {SPD_K} graph vs eager over {SPD_STEPS} steps, cuDNN off and "
+    line = (f"{tag} {name}: K = {SPD_K} graph vs eager over {SPD_STEPS} steps, cuDNN off and "
             f"deterministic kernels: "
             f"distance {dist:.3g} (median over 3 eager runs), eager vs eager {own:.3g} "
             f"({'bit-equal' if own == 0 else 'atomics'}), bar {bar:.3g}; "
@@ -1788,13 +1816,14 @@ def _spd_check(name, kind, dtype, model, crop, batch, density, kappa, count_mode
     if control:
         stale_dist = float(np.median([_spd_distance(stale[:2], e[:2]) for e in eager]))
         if stale_dist <= bar:
-            fail(f"[spd] {name}: the stale-generator control passes the bar ({stale_dist:.3g})")
+            fail(f"{tag} {name}: the stale-generator control passes the bar ({stale_dist:.3g})")
         line += f"; control (replays reuse the first chunk's seeds): {stale_dist:.3g} > bar, fails"
     print(line, flush=True)
     return launches
 
 
-def _spd_time(name, kind, dtype, model, crop, batch, density, kappa, chunks_n=6):
+def _spd_time(name, kind, dtype, model, crop, batch, density, kappa, chunks_n=6,
+              data_parallel=False, tag="[spd]"):
     """Step ms and peak GiB of eager steps (as at K = 1) and of the graphed
     chunk at SPD_K, on one state: the chunks after the first (the capture)
     timed on the host clock, each ending in its loss fetch."""
@@ -1806,7 +1835,7 @@ def _spd_time(name, kind, dtype, model, crop, batch, density, kappa, chunks_n=6)
         torch.cuda.reset_peak_memory_stats()
         net = random_unet(SPD_SEED, num_spatial_dims=len(crop), **model).to(device)
         step, opt, key_driven, _, _ = _spd_setup(kind, net, dtype, device, batch, crop, model,
-                                                 density, kappa)
+                                                 density, kappa, data_parallel=data_parallel)
         chunks = StepChunks(step, net, opt, device, key_driven, SPD_SEED, graphed=graphed)
         batches = _spd_batches(kind, batch, crop, model, density, kappa, n=SPD_K)
         times = []
@@ -1817,7 +1846,7 @@ def _spd_time(name, kind, dtype, model, crop, batch, density, kappa, chunks_n=6)
         out[graphed] = {"ms": 1e3 * float(np.median(times[1:])) / SPD_K,
                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         del net, step, opt, chunks
-    print(f"[spd] {name} ({dtype}, {kind}, batch {batch} x {crop}): step eager "
+    print(f"{tag} {name} ({dtype}, {kind}, batch {batch} x {crop}): step eager "
           f"{out[False]['ms']:.3f} ms, graphed (K = {SPD_K}) {out[True]['ms']:.3f} ms "
           f"({out[False]['ms'] / out[True]['ms']:.2f}x); peak memory eager "
           f"{out[False]['peak_gib']:.3f} GiB, graphed {out[True]['peak_gib']:.3f} GiB", flush=True)
@@ -1907,6 +1936,390 @@ def phase_spd(work):
     _spd_time("examples/2d width", "device_pairs", torch.bfloat16, MODEL, crop2, TRAIN_BATCH,
               0.1, 10.0)
     return launches
+
+
+# -- slice 12: dense in chunks, resume from a JAX .ckpt, multi-GPU (M13) -------------------
+
+
+def phase_dense_spd(work):
+    """``[dense-spd]``: ``loss_mode = "dense"`` at examples/2d's width (bf16,
+    batch 8 x 252^2) as a K = 4 CUDA graph against eager steps, held by
+    ``[spd]``'s bars (its R reference slices are one gather indexed on the
+    card, so the step reads nothing on the host), with ms a step each way;
+    then ``train()`` with ``steps_per_dispatch = 4`` in dense mode for two
+    chunks. Returns K2's launches (the graphed check's, counted as ``[spd]``
+    counts them, and the train run's: warm-up steps plus the captured calls
+    times the replays)."""
+    crop = [CROP, CROP]
+    launches = _spd_check("2d dense bfloat16, batch 8", "dense", torch.bfloat16, MODEL, crop,
+                          TRAIN_BATCH, 0.1, 10.0, tag="[dense-spd]")
+    _spd_time("examples/2d width", "dense", torch.bfloat16, MODEL, crop, TRAIN_BATCH, 0.1, 10.0,
+              tag="[dense-spd]")
+    d = os.path.join(work, "dense-spd")
+    os.makedirs(d)
+    iters = 2 * SPD_K
+    with contextlib.chdir(d), logged(os.path.join(d, "train.log")):
+        config = train_config(os.path.join(work, "data.zarr"), MODEL, precision="bfloat16",
+                              batch_size=TRAIN_BATCH, crop_size=crop, elastic_deform=False,
+                              loss_mode="dense", steps_per_dispatch=SPD_K, max_iterations=iters,
+                              save_best_model_every=10**6, save_model_every=10**6,
+                              save_snapshot_every=10**6)
+        t0 = time.perf_counter()
+        # a chunk's snapshot is a forward of its own (K1's 3 passes): the
+        # first chunk holds iteration 0
+        state, calls = _run_train(config, k1_launches=3)
+        wall = time.perf_counter() - t0
+    # one capture: its warm-up steps launch, its captured calls run at each replay
+    per_step = calls // (StepChunks.WARMUP + SPD_K)
+    if calls != per_step * (StepChunks.WARMUP + SPD_K) or per_step != 6:
+        fail(f"[dense-spd] train(): {calls} K2 calls, not 6 x ({StepChunks.WARMUP} warm-up + "
+             f"{SPD_K} captured)")
+    train_launches = per_step * (StepChunks.WARMUP + SPD_K * iters // SPD_K)
+    print(f"[dense-spd] train(), loss_mode dense, steps_per_dispatch {SPD_K}: {iters} steps in "
+          f"{wall:.2f}s (capture included), losses "
+          f"{[round(v, 1) for v in state['logger_data']['loss']]}; K2 {calls} calls, "
+          f"{train_launches} launches ({StepChunks.WARMUP} warm-up steps + {SPD_K} captured x "
+          f"{iters // SPD_K} replays)", flush=True)
+    return launches + train_launches
+
+
+def _sorted_leaves(tree):
+    """A nested dict's leaves in ``jax.tree_util.tree_leaves`` order: keys
+    sorted at every level."""
+    if not isinstance(tree, dict):
+        return [tree]
+    return [leaf for key in sorted(tree) for leaf in _sorted_leaves(tree[key])]
+
+
+def jax_train_state(state, names):
+    """A port ``.pth`` train state in the JAX package's ``.ckpt`` layout
+    (``cellulus_tpu/train.py:pack_state``): ``params`` by :func:`jax_params`,
+    and ``opt_leaves`` as ``jax.tree_util.tree_leaves`` of the optax chain
+    that examples/2d/train.toml configures (no grad-norm recorder, no
+    schedule): ``scale_by_adam``'s count, then its mu and its nu over the
+    params in sorted-key order. ``names`` are the parameters' names in the
+    optimizer's order. The inverse of the port's ``adam_moments_from_jax``."""
+    adam = state["optim_state_dict"]["state"]
+
+    def moments(key):
+        return _sorted_leaves(jax_params({n: adam[i][key] for i, n in enumerate(names)}))
+
+    count = np.asarray(int(adam[0]["step"]), dtype=np.int32)
+    return {"iteration": int(state["iteration"]), "lowest_loss": float(state["lowest_loss"]),
+            "params": jax_params(state["model_state_dict"]),
+            "opt_leaves": [count] + moments("exp_avg") + moments("exp_avg_sq"),
+            "logger_data": {k: [float(v) for v in vs] for k, vs in state["logger_data"].items()}}
+
+
+def phase_resume_ckpt(work, pth="000020.pth"):
+    """``[resume-ckpt]``: ``[train]``'s last bf16 state (``models/000020.pth``,
+    21 steps of examples/2d/train.toml's settings) written as a flax-format
+    ``.ckpt`` with its Adam state as optax leaves (:func:`jax_train_state`),
+    then 3 steps resumed from the ``.ckpt`` and 3 from the ``.pth``, with
+    cuDNN off and torch's deterministic kernels: the two ``loss.csv`` files
+    equal byte for byte, and so the final weights. Returns K2's launches."""
+    pth = os.path.join(work, "models", pth)
+    state = torch.load(pth, map_location="cpu", weights_only=True)
+    names = [n for n, _ in random_unet(0, **MODEL).named_parameters()]
+    ckpt = os.path.join(work, "resume-ckpt.ckpt")
+    with open(ckpt, "wb") as f:
+        f.write(flax_msgpack(jax_train_state(state, names)))
+    runs, launches = {}, 0
+    for kind, path in (("pth", pth), ("ckpt", ckpt)):
+        d = os.path.join(work, f"resume-{kind}")
+        os.makedirs(d)
+        with contextlib.chdir(d), logged(os.path.join(d, "train.log")), _deterministic():
+            config = train_config(os.path.join(work, "data.zarr"), MODEL, precision="bfloat16",
+                                  max_iterations=int(state["iteration"]) + 4,
+                                  crop_size=[CROP, CROP], batch_size=TRAIN_BATCH,
+                                  elastic_deform=True, save_best_model_every=10**6,
+                                  save_model_every=10**6, save_snapshot_every=10**6)
+            config.model_config.checkpoint = path
+            result, k2 = _run_train(config)
+            with open("loss.csv") as f:
+                runs[kind] = (f.read(), result)
+        launches += k2
+        if k2 != 6 * 3 or result["iteration"] != int(state["iteration"]) + 3:
+            fail(f"[resume-ckpt] {kind}: iteration {result['iteration']}, {k2} K2 launches")
+    if runs["pth"][0] != runs["ckpt"][0]:
+        fail("[resume-ckpt] loss.csv after the resume from the .ckpt differs from the .pth's")
+    weights = [k for k, v in runs["pth"][1]["model_state_dict"].items()
+               if not torch.equal(v, runs["ckpt"][1]["model_state_dict"][k])]
+    if weights:
+        fail(f"[resume-ckpt] the final weights differ: {weights[:4]}")
+    rows = runs["ckpt"][0].splitlines()
+    count = int(state["optim_state_dict"]["state"][0]["step"])
+    print(f"[resume-ckpt] [train]'s {os.path.basename(pth)} as a flax-format .ckpt "
+          f"({os.path.getsize(ckpt)} bytes, {1 + 2 * len(names)} optax leaves, count {count}): "
+          f"3 steps resumed from each, "
+          f"cuDNN off, deterministic kernels: loss.csv bit-equal ({len(rows) - 1} rows, the last "
+          f"{rows[-1]}), final weights bit-equal; K2 {launches} launches", flush=True)
+    return launches
+
+
+DP_STEPS = 3
+
+
+def _dp_batches():
+    """[dp]'s global batches: examples/2d/train.toml's batch of 8 crops of
+    252^2 (device pairs drawn on the card)."""
+    return _spd_batches("device_pairs", TRAIN_BATCH, [CROP, CROP], MODEL, 0.1, 10.0, n=DP_STEPS)
+
+
+def dp_gloo_rank(rank, world, port, out):
+    """A rank of ``[dp]`` (a): a gloo group of ``world`` ranks on ``cuda:0``,
+    each stepping on its rows of the global batch (device pairs, bf16,
+    examples/2d/train.toml's width) ``DP_STEPS`` times, eagerly; rank 0
+    saves its losses, each step's starting parameters and summed gradients,
+    and K2's launches to ``out``."""
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                         world_size=world, rank=rank)
+    try:
+        device = torch.device(DEVICE)
+        local = TRAIN_BATCH // world
+        rows = slice(rank * local, (rank + 1) * local)
+        net = random_unet(SPD_SEED, **MODEL).to(device)
+        dist_mod.broadcast_parameters(net)
+        step, opt, _, _, trace = _spd_setup(
+            "device_pairs", net, torch.bfloat16, device, TRAIN_BATCH, [CROP, CROP], MODEL, 0.1,
+            10.0, record=True, data_parallel=True, rows=rows)
+        chunks = StepChunks(step, net, opt, device, True, SPD_SEED, graphed=False)
+        conv3x3_dw.launches = 0
+        losses = []
+        t0 = time.perf_counter()
+        for j, batch in enumerate(_dp_batches()):
+            losses.append(chunks.run(j, [(batch[0][rows],)])[0].cpu())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if rank == 0:
+            torch.save({"losses": torch.cat(losses), "trace": [([t.cpu() for t in p],
+                                                                [t.cpu() for t in g])
+                                                               for p, g in trace],
+                        "k2": conv3x3_dw.launches, "seconds": seconds}, out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_nccl_rank(rank, port, out):
+    """``[dp]`` (b): one NCCL rank on ``cuda:0``. ``[spd]``'s check of a K = 4
+    graph against eager steps with every optimizer summing its gradients
+    over the group (so each captured step holds the all_reduce), then ms a
+    step graphed and eager in the group and with no group."""
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                         world_size=1, rank=0)
+    try:
+        calls = []
+        reduce = dist_mod.reduce_gradients
+
+        def counted(params, totals):
+            calls.append(torch.cuda.is_current_stream_capturing())
+            return reduce(params, totals)
+
+        dist_mod.reduce_gradients = counted
+        crop = [CROP, CROP]
+        launches = _spd_check("2d device_pairs bfloat16, NCCL group of 1", "device_pairs",
+                              torch.bfloat16, MODEL, crop, 2, 0.1, 10.0, data_parallel=True,
+                              tag="[dp] (b)")
+        captured = sum(calls)
+        times = {name: _spd_time(f"examples/2d width, {name}", "device_pairs", torch.bfloat16,
+                                 MODEL, crop, TRAIN_BATCH, 0.1, 10.0, data_parallel=dp,
+                                 tag="[dp] (b)")
+                 for name, dp in (("NCCL group of 1", True), ("no group", False))}
+        if not captured:
+            fail("[dp] (b): no all_reduce was called under graph capture")
+        torch.save({"k2": launches, "captured": captured, "calls": len(calls),
+                    "times": times}, out)
+    finally:
+        dist_mod.reduce_gradients = reduce
+        torch.distributed.destroy_process_group()
+
+
+def phase_dp(work):
+    """``[dp]``: data-parallel training on the one card. (a) Two gloo ranks on
+    ``cuda:0`` (gloo reduces CUDA tensors through the host; NCCL refuses
+    two ranks on one GPU), examples/2d/train.toml's batch of 8 split 4 a
+    rank, 3 eager steps: each step's summed gradients against one rank's
+    eager step on the whole batch from the same parameters, held to
+    ``[spd]``'s cuDNN bar (no farther than that step's gradients with
+    cuDNN off and deterministic kernels). (b) One NCCL rank:
+    ``steps_per_dispatch = 4`` as a CUDA graph holding the all_reduce,
+    against eager steps, and ms a step against no group. NCCL across cards
+    and peer copies stay unverified on a one-GPU card. Returns K2's
+    launches by path."""
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    out_a, out_b = os.path.join(work, "dp-gloo.pt"), os.path.join(work, "dp-nccl.pt")
+    t0 = time.perf_counter()
+    mp.spawn(dp_gloo_rank, args=(2, dist_mod.free_port(), out_a), nprocs=2, join=True)
+    wall_a = time.perf_counter() - t0
+    gloo = torch.load(out_a, weights_only=False)
+    batches = _dp_batches()
+    crop = [CROP, CROP]
+    step_args = (crop, 0.1, 10.0, "reference", False)
+    worst = (0.0, 0, 0.0, 0.0)
+    for j, (params_j, grads_j) in enumerate(gloo["trace"]):
+        params_j = [t.to(DEVICE) for t in params_j]
+        grads_j = [t.to(DEVICE) for t in grads_j]
+        eager_j = _spd_step_gradients("device_pairs", torch.bfloat16, MODEL, params_j,
+                                      batches[j], j, *step_args)
+        with _deterministic():
+            other_j = _spd_step_gradients("device_pairs", torch.bfloat16, MODEL, params_j,
+                                          batches[j], j, *step_args)
+        d_dp, d_other = _relative_l2(grads_j, eager_j), _relative_l2(other_j, eager_j)
+        if not d_dp <= d_other:
+            fail(f"[dp] (a) step {j}: the 2 ranks' summed gradients are {d_dp:.3g} from one "
+                 f"rank's on the whole batch, above that step's {d_other:.3g} with cuDNN off")
+        worst = max(worst, (d_dp / d_other if d_other else 0.0, j, d_dp, d_other))
+    # the losses of one rank on the whole batch from the same start
+    net = random_unet(SPD_SEED, **MODEL).to(DEVICE)
+    step, opt, _, _, _ = _spd_setup("device_pairs", net, torch.bfloat16, torch.device(DEVICE),
+                                    TRAIN_BATCH, crop, MODEL, 0.1, 10.0)
+    chunks = StepChunks(step, net, opt, torch.device(DEVICE), True, SPD_SEED, graphed=False)
+    one_losses = torch.cat([chunks.run(j, [b])[0].cpu() for j, b in enumerate(batches)])
+    loss_diff = float(((gloo["losses"] - one_losses).abs() / one_losses.abs()).max())
+    print(f"[dp] (a) 2 gloo ranks on cuda:0, batch {TRAIN_BATCH} (4 a rank), bf16 device pairs, "
+          f"{DP_STEPS} eager steps in {gloo['seconds']:.2f}s ({wall_a:.1f}s with the ranks' "
+          f"start): losses {[round(float(v), 1) for v in gloo['losses']]} vs one rank "
+          f"{[round(float(v), 1) for v in one_losses]} (largest relative difference "
+          f"{loss_diff:.3g}); each step's summed gradients vs one rank's eager step from the "
+          f"same parameters at most {worst[0]:.3g} x that step's cuDNN-off distance (step "
+          f"{worst[1]}: {worst[2]:.3g} vs {worst[3]:.3g}); K2 {gloo['k2']} launches on rank 0",
+          flush=True)
+    t0 = time.perf_counter()
+    mp.spawn(dp_nccl_rank, args=(dist_mod.free_port(), out_b), nprocs=1, join=True)
+    wall_b = time.perf_counter() - t0
+    nccl = torch.load(out_b, weights_only=False)
+    group, none = nccl["times"]["NCCL group of 1"], nccl["times"]["no group"]
+    print(f"[dp] (b) NCCL group of 1 ({wall_b:.1f}s with the rank's start): the all_reduce "
+          f"called {nccl['calls']} times, {nccl['captured']} of them under graph capture; ms a "
+          f"step graphed {group[True]['ms']:.3f} in the group vs {none[True]['ms']:.3f} with no "
+          f"group, eager {group[False]['ms']:.3f} vs {none[False]['ms']:.3f}", flush=True)
+    return {"dp (a) gloo, rank 0": gloo["k2"], "dp (b) nccl graphed": nccl["k2"]}
+
+
+# [m13-predict]: the share of pixels the sharded-vs-tiled comparison may
+# leave out (a zero draw's receptive field; 324 of 524,288 in a full run)
+EXCLUDED_MAX = 0.005
+
+
+def phase_m13_predict(work):
+    """``[m13-predict]``: examples/2d's model (``[main]``'s weights) in bf16 on
+    ``[main]``'s 2 x 512^2 samples over the device list ``["cuda:0",
+    "cuda:0"]``: (1) the tile batch split over it, bit-equal to one device;
+    (2) ``spatial_shards = 2`` over it against the tiled path at
+    ``p_salt_pepper = 0``, no farther apart than the tiled path in bf16 is
+    from itself in float32; (3) detect with samples round-robin over it,
+    equal to serial. Seconds of each. Returns the launches by path."""
+    container = os.path.join(work, "data.zarr")
+    checkpoint = os.path.join(work, "weights.pth")
+    two = [torch.device(DEVICE)] * 2
+    net = UNet(1, 2, **MODEL)
+    load_checkpoint(checkpoint, net)
+    net = net.to(DEVICE).eval()
+    raw_ds = zarr.open(container, "r")["raw"]
+    nf = normalization_factor_for(raw_ds.dtype)
+    raws = [np.asarray(raw_ds[s], np.float32) for s in range(2)]
+    config = infer_config(container, checkpoint, MODEL, device=DEVICE, precision="bfloat16")
+    ic = config.inference_config
+
+    def run(settings, dtype=torch.bfloat16, devices=None):
+        conv_pass_2d.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [predict_sample(net, raws[s], settings, nf, s, DEVICE, dtype, devices=devices)
+                for s in range(2)]
+        torch.cuda.synchronize()
+        return np.stack(outs), time.perf_counter() - t0, conv_pass_2d.launches
+
+    one, s_one, k1_one = run(ic)
+    split, s_split, k1_split = run(ic, devices=two)
+    if not np.array_equal(one, split):
+        fail(f"[m13-predict] the tile batch split over 2 devices differs from one device: max "
+             f"abs {np.abs(one - split).max():.3g}")
+    # 3 passes a forward: a tile batch a forward on one device, a non-empty
+    # chunk of it a forward on each of two
+    batches = [len(c) for c in np.array_split(np.arange(9), range(TILE_BATCH, 9, TILE_BATCH))]
+    want_one = 2 * 3 * len(batches)
+    want_split = 2 * 3 * sum(min(2, b) for b in batches)
+    if (k1_one, k1_split) != (want_one, want_split):
+        fail(f"[m13-predict] K1 launched {k1_one} (one device) and {k1_split} (split) times, "
+             f"expected {want_one} and {want_split}")
+    # p_salt_pepper = 0: every TTA copy is the input, so both paths compute
+    # one function of the same pixels, whole or in tiles
+    quiet = dataclasses.replace(ic, p_salt_pepper=0.0)
+    halves = dataclasses.replace(quiet, spatial_shards=2)
+    tiled, s_tiled, _ = run(quiet)
+    sharded, s_sharded, k1_sharded = run(halves, devices=two)
+    tiled32, _, _ = run(quiet, torch.float32)
+    sharded32, _, _ = run(halves, torch.float32, devices=two)
+
+    # A draw of exactly 0 (2**-24 a draw: about one a sample here) is <= 0,
+    # so it puts noise in one copy of one pixel even at p_salt_pepper = 0,
+    # and the two paths draw apart: compare where every output's std channel
+    # reads 0, i.e. where all the copies the pixel's receptive field saw
+    # were the input; the mask comes from the outputs under test, so it may
+    # leave out at most EXCLUDED_MAX of the pixels (a few draws' reach)
+    clean = np.ones(tiled.shape[:1] + tiled.shape[2:], bool)
+    for out in (tiled, sharded, tiled32, sharded32):
+        clean &= out[:, -1] == 0
+    excluded = int(clean.size - clean.sum())
+    if excluded > EXCLUDED_MAX * clean.size:
+        fail(f"[m13-predict] spatial_shards = 2 against the tiled path: {excluded} of "
+             f"{clean.size} pixels have a std channel above 0 (bar {EXCLUDED_MAX:.1%})")
+
+    def rel_l2(a, b):
+        a, b = np.moveaxis(a, 1, -1)[clean], np.moveaxis(b, 1, -1)[clean]
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    # float32 (K1 as 3xTF32, TF32 off elsewhere): the library's GEMMs and
+    # reductions sum in other orders at other shapes, nothing more
+    d32 = rel_l2(sharded32, tiled32)
+    # bf16: each path rounds the same f32 function on its own; the sharded
+    # output no farther from float32's than twice the tiled one is
+    d16, bar16 = rel_l2(sharded, tiled32), 2 * rel_l2(tiled, tiled32)
+    if (not np.isfinite(sharded).all() or sharded.shape != tiled.shape
+            or not np.isfinite([d32, d16, bar16]).all() or d32 > 1e-5 or d16 > bar16):
+        fail(f"[m13-predict] spatial_shards = 2 against the tiled path: float32 relative L2 "
+             f"{d32:.3g} (bar 1e-5), bf16 {d16:.3g} from the float32 tiled output (bar "
+             f"{bar16:.3g}, twice the bf16 tiled output's)")
+    if k1_sharded != 2 * 2 * 3:
+        fail(f"[m13-predict] the sharded forward launched K1 {k1_sharded} times, not 12")
+
+    ic.bandwidth = 0.5 * config.object_size
+    ic.min_size = int(0.1 * np.pi * (config.object_size**2) / 4)
+    detected, seconds, fits = {}, {}, {}
+    for name, devices in (("serial", None), ("round-robin", two)):
+        copy = os.path.join(work, f"m13-{name}.zarr")
+        shutil.copytree(container, copy)
+        zarr.open(copy, "a")["embeddings"] = one
+        ic_copy = infer_config(copy, checkpoint, MODEL, device=DEVICE, precision="bfloat16",
+                               bandwidth=ic.bandwidth, min_size=ic.min_size).inference_config
+        mean_shift_fit.launches = 0
+        t0 = time.perf_counter()
+        with logged(os.path.join(work, f"m13-{name}.log")):
+            detect_stage(ic_copy, DEVICE, devices=devices)
+        seconds[name] = time.perf_counter() - t0
+        fits[name] = mean_shift_fit.launches
+        f = zarr.open(copy, "r")
+        detected[name] = {n: f[n][...] for n in ("detection", "binary-segmentation",
+                                                  "centered-embeddings")}
+    differing = [n for n, v in detected["serial"].items()
+                 if not np.array_equal(v, detected["round-robin"][n])]
+    if differing or fits != {"serial": 2, "round-robin": 2}:
+        fail(f"[m13-predict] round-robin detect: {differing} differ from serial, fits {fits}")
+    print(f"[m13-predict] examples/2d's model bf16, 2 x {IMAGE_SIZE}^2: tile batch over "
+          f"['cuda:0', 'cuda:0'] bit-equal to one device, {s_split:.3f}s vs {s_one:.3f}s (K1 "
+          f"{k1_split} vs {k1_one} launches); spatial_shards = 2 at p_salt_pepper 0 "
+          f"{s_sharded:.3f}s vs tiled {s_tiled:.3f}s (bf16, K1 {k1_sharded}), relative L2 from "
+          f"tiled {d32:.3g} in float32, bf16 {d16:.3g} from float32's vs tiled bf16's "
+          f"{bar16 / 2:.3g}, over the {clean.sum()} pixels no draw of exactly 0 reached "
+          f"({excluded} excluded); detect round-robin "
+          f"{seconds['round-robin']:.3f}s vs serial "
+          f"{seconds['serial']:.3f}s, the three datasets bit-equal, {fits['round-robin']} fits",
+          flush=True)
+    return {"tile split": k1_split, "spatial_shards 2": k1_sharded,
+            "round-robin detect": fits["round-robin"]}
 
 
 def _warp_check(device):
@@ -3608,12 +4021,16 @@ def main() -> None:
         clock("variants")
         wide_launches = phase_wide_main(work)
         clock("wide-main")
+        m13_launches = phase_m13_predict(work)
+        clock("m13-predict")
         trace_launches, k2_trace = phase_trace(work)
         clock("trace")
         k2_bf16, k2_f32 = phase_train(work, k2[torch.bfloat16]["ms"])
         clock("train")
         ckpt_launches = phase_ckpt(work)
         clock("ckpt")
+        k2_resume = phase_resume_ckpt(work)
+        clock("resume-ckpt")
         export_launches = phase_export(work)
         clock("export")
         k1_mc, k2_mc, k1_mc_launches, k2_mc_launches = phase_mc(work)
@@ -3626,6 +4043,10 @@ def main() -> None:
         clock("learn-grid")
         k2_spd = phase_spd(work)
         clock("spd")
+        k2_dense_spd = phase_dense_spd(work)
+        clock("dense-spd")
+        k2_dp = phase_dp(work)
+        clock("dp")
         k2_native = phase_native(work)
         clock("native")
         phase_3d_checks(device)
@@ -3658,6 +4079,8 @@ def main() -> None:
                 torch.float32: {"train": k2_f32, "learn-grid": k2_learn_grid,
                                 "spd": k2_spd[torch.float32]}}
     k2_paths[torch.bfloat16]["mc (3 channels)"] = k2_mc_launches
+    k2_paths[torch.bfloat16].update({"dense-spd": k2_dense_spd, "resume-ckpt": k2_resume,
+                                     **k2_dp})
     # K1 and the fit by path: the main paths, the pipelined paths ([wide-main]
     # both ways, [trace] (a) in f32) and [sweep] (HeLa's 24-fmap model, f32)
     k1_paths = {torch.float32: {"main": k1_launches[torch.float32],
@@ -3667,7 +4090,10 @@ def main() -> None:
                 torch.bfloat16: {"main": k1_launches[torch.bfloat16],
                                  "ckpt (examples/2d/infer.toml)": ckpt_launches["conv_pass_2d"],
                                  "export (served, a call)": export_launches["bfloat16"],
-                                 "mc (3 channels)": k1_mc_launches}}
+                                 "mc (3 channels)": k1_mc_launches,
+                                 "m13-predict (tile split, 2 devices)": m13_launches["tile split"],
+                                 "m13-predict (spatial_shards 2)":
+                                     m13_launches["spatial_shards 2"]}}
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         rows.append({"name": "conv_pass_2d", "dtype": str(dtype).removeprefix("torch."),
@@ -3712,7 +4138,8 @@ def main() -> None:
                      **{f"wide-main {mode}": n["mean_shift_fit"]
                         for mode, n in wide_launches.items()},
                      "trace (pipelined)": trace_launches["mean_shift_fit"],
-                     "sweep": sweep_launches["mean_shift_fit"]},
+                     "sweep": sweep_launches["mean_shift_fit"],
+                     "m13-predict (round-robin detect)": m13_launches["round-robin detect"]},
                  3: {"main": infer_3d_launches["float32"]["mean_shift_fit"]}}
     for d, fit, launches in ((2, k3_fit, infer_launches), (3, k3_fit_3d, infer_3d_launches)):
         fit.pop("out")

@@ -2,7 +2,8 @@
 reader against flax's writer, the weights of a JAX-written checkpoint
 against the JAX forward, the rule for a configured ``.ckpt`` that exists
 only as ``.pth``, the sweep over ``.ckpt`` files, and train resume from a
-``.ckpt`` refused."""
+``.ckpt``: its optimizer state refused, with the JAX package's warning,
+where its leaves do not fit the configured optimizer."""
 
 import jax
 import jax.numpy as jnp
@@ -17,8 +18,8 @@ from cellulus_tpu.train import make_optimizer, pack_state
 from cellulus_tpu.utils.checkpoint import save_checkpoint
 from cellulus_tpu_torch.models import UNet, load_checkpoint
 from cellulus_tpu_torch.utils import msgpack as port_msgpack
+from cellulus_tpu_torch.models import adam_moments_from_jax
 from cellulus_tpu_torch.utils.checkpoint import (
-    JAX_RESUME_ITEM,
     checkpoint_format,
     load_train_state,
     resolve_checkpoint,
@@ -193,11 +194,23 @@ def test_sweep_takes_either_suffix_once(tmp_path, monkeypatch):
 
 
 def test_train_resume_from_a_jax_ckpt_is_refused(tmp_path):
+    """A ``.ckpt`` whose optax leaves do not fit the configured optimizer (a
+    leaf more than it holds: the grad-norm recorder or the schedule's count
+    toggled on) gives its weights but not its moments: the JAX package's
+    ``RuntimeWarning`` (``cellulus_tpu/train.py:546-567``), and fresh
+    moments."""
     path = tmp_path / "best_loss.ckpt"
     save_checkpoint(path, _real_state())
-    with pytest.raises(ValueError, match="train resume from a JAX .ckpt") as info:
-        load_train_state(path)
-    assert JAX_RESUME_ITEM in str(info.value)
+    state = load_train_state(path)
+    assert state["iteration"] == 7 and state["logger_data"]["loss"] == [1.5, 1.25, 0.75]
+    assert "optim_state_dict" not in state
+    n = len(state["jax_opt_leaves"])
+    for log_grad_norm, lr_milestones in ((True, False), (False, True)):
+        with pytest.warns(RuntimeWarning, match=(
+                f"checkpoint optimizer state has {n} arrays but the configured optimizer "
+                f"expects {n + 1} .*optimizer state reinitialized")):
+            assert adam_moments_from_jax(state["jax_params"], state["jax_opt_leaves"],
+                                         log_grad_norm, lr_milestones) is None
 
 
 @pytest.mark.parametrize("constant_upsample", [True, False])

@@ -43,7 +43,12 @@ def test_transfer_precision_float16_matches_jax():
 
 
 def test_spatial_shards_raise():
+    """``spatial_shards = 2`` on CUDA with fewer visible GPUs (none here)
+    raises the JAX package's ValueError (``cellulus_tpu/predict.py:138-142``)
+    before anything runs; on the CPU it runs over two CPU devices."""
     _, _, model = unet_pair(2, [[2, 2]])
     ic = InferenceConfig(**_SETTINGS, spatial_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="M13"):
-        predict_sample(model, _raw(), ic, 1.0, 0, "cpu")
+    with pytest.raises(ValueError, match="spatial_shards=2 but only 0 devices are visible"):
+        predict_sample(model, _raw(), ic, 1.0, 0, "cuda:0")
+    raw = _raw()[:, :60, :56]  # an extent the valid-conv geometry reaches
+    assert predict_sample(model, raw, ic, 1.0, 0, "cpu").shape == (3, 60, 56)

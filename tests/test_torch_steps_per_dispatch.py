@@ -227,5 +227,21 @@ def test_rate_on_device_follows_the_schedule():
 
 
 def test_dense_chunks_raise(one_crop_container, tmp_path):
-    with pytest.raises(NotImplementedError, match="offs.tolist"):
-        _run(one_crop_container, tmp_path, steps_per_dispatch=2, loss_mode="dense")
+    """Dense loss runs in chunks now (``tests/test_torch_dense_chunks.py``).
+    What still raises is a chunk no CUDA graph can hold: on CUDA in a gloo
+    group, whose all_reduce of CUDA tensors goes through the host; the check
+    comes before any CUDA use, naming NCCL."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                         world_size=1, rank=0)
+    try:
+        config = ExperimentConfig(**_train_dict(one_crop_container, steps_per_dispatch=2,
+                                                loss_mode="dense", device="cuda:0"))
+        with pytest.raises(ValueError, match="needs the NCCL backend"):
+            cellulus_tpu_torch.train(config)
+    finally:
+        torch.distributed.destroy_process_group()

@@ -432,11 +432,20 @@ def test_stop_file_checkpoints_and_exits(one_crop_container, tmp_path, monkeypat
     assert torch.load("models/000002.pth", weights_only=True)["iteration"] == 2
 
 
-@pytest.mark.parametrize("option", [{"data_parallelism": 2}])
+@pytest.mark.parametrize("option", [
+    {"data_parallelism": 2, "device": "cuda:0"},
+    {"data_parallelism": 4, "device": "cuda:0", "batch_size": 8},
+])
 def test_unported_options_raise(one_crop_container, tmp_path, monkeypatch, option):
+    """What still raises of the multi-GPU options: a CUDA request for more
+    GPUs than are visible (none here), before any process starts."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cellulus_tpu_torch.train(_port_config(one_crop_container, **option))
+    config = _port_config(one_crop_container)
+    for name, value in option.items():
+        setattr(config.train_config, name, value)
+    with pytest.raises(ValueError, match=f"requested {option['data_parallelism']} data shards "
+                                         "but only 0 devices are available"):
+        cellulus_tpu_torch.train(config)
 
 
 @pytest.mark.parametrize("option", [
