@@ -2,10 +2,10 @@
 //
 //   conv3x3+b -> ReLU -> conv1x1+b -> ReLU -> conv1x1+b -> ReLU -> conv3x3+b -> ReLU
 //
-// all VALID, NHWC, (B, H, W, Cin) -> (B, H-4, W-4, C); weights (kh, kw, cin, C)
-// in the compute type, biases f32; f32 accumulation, bias and ReLU in the
-// epilogue, every intermediate stored in the compute type (f32 or bf16), so
-// the rounding points are those of conv_pass_2d_plain.
+// all VALID, NHWC, (B, H, W, Cin) -> (B, H-4, W-4, C); biases f32; f32
+// accumulation, bias and ReLU in the epilogue, every intermediate stored in
+// the compute type (f32 or bf16), so the rounding points are those of
+// conv_pass_2d_plain.
 //
 // Replaces: cellulus_tpu/ops/pallas_conv.py `_pass_call` / `conv_pass_2d`
 // (one Pallas program per row strip, the four stages in VMEM).
@@ -14,687 +14,867 @@
 // does 30-150 FLOP per byte it must move (input once, output once), far
 // above the card's ridge point, so the least time is the FLOPs over the
 // tensor-core peak of the compute type (bf16 989 TFLOP/s; float32 as
-// 3xTF32, 495 / 3 = 165 TFLOP/s).
+// 3xTF32, 495 / 3 = 165 TFLOP/s). wgmma is the only way to that peak.
 //
-// What the design does about it:
-// - The three intermediates never touch device memory. A block owns a
-//   TH x TW output tile of one image and keeps the (TH+4) x (TW+4) input
-//   tile and the (TH+2) x (TW+2) intermediates in shared memory,
-//   pixel-major, channels zero-padded to a multiple of 16 and the pixel
-//   pitch padded so that eight neighbouring pixels fall in distinct banks
-//   (bf16: +8 elements, odd 16-byte units for ldmatrix rows; f32: +4).
-//   The input buffer is reused for the stage-2 output, so the footprint is
-//   A + max(IN, B) plus the weight ring. A block's time is mostly per
-//   weight chunk and round of warp units, not per pixel, so the tile sets
-//   the speed (on the H100 the bf16 up pass takes 62 ms at 8 x 8, 22 ms at
-//   14 x 14 and 29 ms at 16 x 16, whose stage 1 needs a second round:
-//   scripts/torch_kernel_check.py tiles). The wrapper takes, of the square
-//   tiles that fit (conv_pass_2d_smem_bytes), the one conv_pass_2d_cost
-//   rates cheapest.
-// - A wide input (cin >= 128, the up pass) is not held: stage 1 streams it
-//   through the ring, 16 (bf16) or 8 (f32) channels of the input tile at a
-//   time with their weight rows for all 9 taps, and only the two
-//   intermediates stay resident. That takes the up pass from 12 x 12 to
-//   16 x 16 tiles in bf16 and from 8 x 8 to 14 x 14 in f32.
-// - A wide pass whose fused plan fits no tile (the 256-fmap model's bottom
-//   pass, 256 -> 768: its ring stage alone holds 9 x scb weight rows of
-//   width C) takes the staged route, chosen by shape in the wrapper: one
-//   launch per stage (conv_stage_kernel), each intermediate in device memory
-//   in the compute type, so the rounding points stay those of
-//   conv_pass_2d_plain. A block owns a 16 x 16 tile of the stage's output
-//   and NB = 64 (bf16) or 32 (f32) of its channels, and streams its input
-//   tile through the ring scb channels at a time (4 x scb for a 1 x 1 stage)
-//   with the weight rows of those channels and its NB columns, so its shared
-//   memory does not grow with C or cin. At C = 768 a pass does several
-//   hundred FLOP per byte whether or not its intermediates leave the chip.
-// - Each stage is an implicit GEMM on the tensor cores: M = pixels of the
-//   stage's output grid, N = C, K = kh * kw * cinp (cin zero-padded to the
-//   mma depth, 16 in bf16 and 8 in f32, which is how the down pass's
-//   cin = 1 reaches it). The 8
-//   warps take units of the stage's output in rounds: bf16, 32 pixels x 64
-//   channels (two m16 by eight n8 tiles); f32, 32 pixels x 32 channels,
-//   since its tiles are smaller (8 x 8 at C = 192) and a wider unit would
-//   leave warps idle (and spill: 64 accumulators and 64 partial sums). M rows past the grid read a clamped pixel
-//   and are not stored. A fragments come from the activation tile at the
-//   tap-shifted pixel of each row (one row address per lane), B fragments
-//   from the weights, which stream through a cp.async ring (3 stages in
-//   bf16, 2 in f32) of 64-row chunks (32 for C > 64) in the compute type,
-//   so the next chunk loads while this one multiplies. Each k step's
-//   fragments are loaded before the previous step's mma's are issued.
-// - bf16: mma.sync m16n8k16, A by ldmatrix, B by ldmatrix.trans. f32:
-//   3xTF32 (mma_tile.cuh) with fragments by 32-bit shared loads, the three
-//   products issued in three passes over the unit's n8 tiles so that no
-//   mma waits on the one before; each chunk is summed from zero and added
-//   to the running sum in float32, since the tensor cores round their
-//   accumulator toward zero.
+// Each stage is an implicit GEMM: M = pixels of the stage's output grid,
+// N = C in n-blocks of 64 columns, K = kh * kw * cin in the order (tap,
+// channel). What held the earlier mma.sync design back, and what this one
+// does about it:
+// (1) The weights streamed through the ring once per round of 8 warp units
+//     of 32 pixels x 64 (bf16) or 32 (f32) channels. Here both consumer
+//     warpgroups take the same n-block and split the stage's m64 tiles, up
+//     to MT = 4 (bf16) or 1 (f32) each, so one pass of an n-block's weights
+//     feeds up to 512 (bf16) or 128 (f32) pixels; a stage takes n_nb x R
+//     rounds, R = ceil(m64 tiles / 2 MT). A stage of at most MT tiles and
+//     two n-blocks or more runs in pair mode where that is cheaper: the
+//     warpgroups take the same tiles and an n-block each, a slot holding a
+//     chunk of both, so that neither idles (the 256-fmap first pass: one
+//     tile in f32 at 6 x 6, three in bf16 at 10 x 10).
+// (2) A __syncthreads for every 32 rows of K. Here a ring of S slots (2..4,
+//     as many as shared memory leaves; 128 K rows of one n-block in bf16, 32
+//     in f32, 16 KB) runs on full and empty mbarriers: a chunk arrives by
+//     cp.async.bulk (one per weight array) completing on its slot's full
+//     barrier, and each consumer warp arrives on the empty barrier once its
+//     warpgroup's wgmmas on the slot have completed. The producer walks
+//     the chunks of every round of every stage in the consumers' order, so
+//     the next stage's weights load while this one finishes.
+// (3) mma.sync from 8 warps, B re-read by every warp on every k step. Here
+//     two warpgroups issue wgmma.mma_async, m64n64k16 bf16 and m64n64k8
+//     .tf32 three times a k step for 3xTF32 (lo*hi, hi*lo, hi*hi), B read
+//     from the slot by descriptor. A comes from registers: each warp loads
+//     its 16 rows at the tap-shifted pixel, ldmatrix.x4 in bf16 and 32-bit
+//     loads in f32 (split into hi and lo in registers), each lane decoding
+//     its own k to (tap, channel), so a k step may cross taps and channels
+//     pad only to 16 bytes (cin = 1 costs 8 in bf16, 4 in f32, not 16 and
+//     8). A is double buffered and one wgmma group stays in flight behind
+//     the one being issued; every tile of the round reads a slot before it
+//     is released. The warpgroup's tile count is a template argument
+//     (consume_round<MTA>) and its index a warp-uniform shuffle, so that no
+//     wgmma sits behind a branch the compiler cannot prove uniform (ptxas
+//     serialises those).
+//     A producer warpgroup (setmaxnreg down to 56 registers; one thread
+//     issues every copy) feeds two consumer warpgroups (up to 224).
+// (4) Small tiles at wide C. The ring is 64 columns wide whatever C is,
+//     which lets the tiles grow (plan in ops/conv_pass.py): 64 -> 192 keeps
+//     12 x 12 (bf16) and 8 x 8 (f32), 1 -> 256 in bf16 takes 10 x 10 (was
+//     8 x 8), the 64-wide passes up to 20 x 20 (bf16; was 14 x 14). The
+//     1x1 stages are not computed in place: an m64 tile's whole K in
+//     registers costs 48-96 registers that the MT tiles' accumulators need.
+//     Footprint: mid + max(in, mid) + ring; the input buffer takes stage
+//     2's output and the output tile.
+// (5) The staged route read each input tile once per 64 output channels,
+//     16 channels and a barrier at a time. It now runs on the same producer
+//     and consumers, one launch per stage: a block takes a 16 x 16 output
+//     tile and one n-block, its input streamed by TMA in slices of 32 (bf16)
+//     or 16 (f32) channels a 3x3 chunk, 64 or 32 a 1x1 chunk; its output
+//     tile is staged in shared memory of its own.
+// (6) Scalar 2-byte output stores. The last stage's tile now goes to shared
+//     memory (bias, ReLU and rounding in registers), then to the image with
+//     16-byte coalesced stores. Intermediates are stored as pairs.
+//
+// Registers: ptxas compiles the whole kernel within the launch budget of
+// 384 threads, 168 registers a thread; it does not raise the consumers'
+// budget after setmaxnreg.inc. So the tiles a warpgroup holds are sized to
+// it: in bf16 4 m64 tiles (128 accumulator registers); in f32 one, whose
+// 32 accumulators and 32 of the chunk's partial sum fit (at 2, the 64 + 64
+// spilled and ptxas serialised the wgmmas: 15-30% slower on every f32
+// pass). Measured against this design on the H100, one call each
+// (PERF.md): a producer warp instead of a warpgroup (288 threads, still
+// 168 registers) was 5-30% slower in bf16; two warpgroups alone with
+// thread 0 feeding the ring (256 threads, 255 registers) were 1.5-3x
+// slower, the feed's state live in every thread; bf16 at 2 tiles a
+// warpgroup, which ptxas does not serialise, was within -12% to +6% by pass.
+//
+// Weights are packed by the wrapper once per call (ops/conv_pass.py
+// pack_stage) into the layout the wgmma descriptor names: per n-block, K
+// rows in 16-byte slabs, [K/kin][64][kin] (kin = 16 bytes of elements),
+// K-major without swizzle (LBO = 1024 bytes between k slabs, SBO = 128
+// between 8-column groups). Every core matrix is 128 contiguous bytes, so
+// wgmma reads B without bank conflicts and without a swizzle, any chunk is
+// one contiguous copy, and no 1024-byte alignment is needed. In f32 the
+// wrapper splits w into hi = tf32(w) and lo = w - hi (the rule of to_tf32),
+// two arrays of that layout one after the other.
+//
+// f32: the tensor cores truncate an f32 accumulator, so each chunk is
+// summed from zero (scale-d = 0 on its first k step) into a partial and
+// added to the running sum with an ordinary f32 add: over K = 9 * 256 the
+// drift would otherwise reach 1e-4.
+//
+// Intermediates never touch device memory: a block owns a TH x TW output
+// tile of one image and keeps the (TH+4) x (TW+4) input tile and the
+// (TH+2) x (TW+2) intermediates in shared memory, pixel-major, channels
+// padded to 16 bytes and the pixel pitch to an odd number of 16-byte units
+// (conflict-free ldmatrix rows). A wide input (cin >= 128, the up passes)
+// is not held: stage 1 streams it, a chunk being one tap row dy of SB input
+// channels, a TMA 4D box (SB, TW+4, TH+2, 1) of the NHWC input at (cb, x0,
+// y0 + dy, image) whose zero fill takes the image edge, followed by the
+// 3 x SB weight rows of that tap row. Rows past the grid read a clamped
+// pixel and are not stored; k rows past the stage's K read pixel 0 against
+// zero weight rows.
+//
+// Registers and spills (nvcc -Xptxas -v, CUDA 12.8, as chip_smoke.py
+// prints them at its build): every kernel 168 registers a thread, 2 named
+// barriers; spill stores / loads in bytes: conv_pass_kernel<bf16> 176 /
+// 256, conv_pass_kernel<float> 1,180 / 2,388, conv_stage_kernel<bf16> 32 /
+// 32, conv_stage_kernel<float> none. ptxas reports the wgmmas of the two
+// bf16 kernels serialised for register resources (C7512).
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
-#include "mma_tile.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using namespace mma_tile;
+using namespace wg;
 
-constexpr int kThreads = 256;
-constexpr int KC_MAX = 144;  // weight rows per ring stage, at most
+constexpr int kThreads = 384;  // a producer warpgroup and two consumer warpgroups
+constexpr int kConsumers = 256;
+constexpr int NB = 64;  // wgmma N: the columns of one n-block
+constexpr int kMaxSlots = 4;
+constexpr int kBarBytes = 128;  // the ring's mbarriers, at the start of shared memory
+constexpr long long kMaxSmem = 232448;
+constexpr int kEmptyArrivals = 8;  // one per consumer warp
+// setmaxnreg: the producer warpgroup gives registers to the consumers; the
+// pool is the block's 384 x 168 registers at launch
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
 
-// Per compute type: the warp's unit (mt m16 tiles of pixels x nt n8 tiles
-// of channels), ring stages, activation pitch padding, input channels per
-// ring stage when stage 1 streams its input, and the multiple of the mma
-// depth that each tap's input channels are zero-padded to in K.
-template <typename T> struct Cfg;
-template <> struct Cfg<__nv_bfloat16> {
-  static constexpr int mt = 2, nt = 8, stages = 3, pad = 8, scb = 16, kpad = 16;
+// Per compute type: element bytes, K rows per wgmma, elements per 16 bytes,
+// m64 tiles per consumer warpgroup, K rows of a plain ring chunk, weight
+// arrays (bf16 one; f32 hi and lo).
+template <typename T>
+struct Cfg;
+template <>
+struct Cfg<__nv_bfloat16> {
+  static constexpr int esz = 2, kstep = 16, kin = 8, mt = 4, kc = 128, arrays = 1;
 };
-template <> struct Cfg<float> {
-  static constexpr int mt = 2, nt = 4, stages = 2, pad = 4, scb = 8, kpad = 8;
+template <>
+struct Cfg<float> {
+  static constexpr int esz = 4, kstep = 8, kin = 4, mt = 1, kc = 32, arrays = 2;
 };
 
-// Weight rows per ring stage: 64 where the rows are narrow (C <= 64), so a
-// barrier is passed half as often; 32 for wider C, whose rows would not fit.
-__host__ __device__ inline int kc_rows(int C) { return C <= 64 ? 64 : 32; }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline long long r128(long long n) { return (n + 127) / 128 * 128; }
+__host__ __device__ inline long long lmax(long long a, long long b) { return a > b ? a : b; }
 
-__host__ __device__ inline int round16(int c) { return (c + 15) / 16 * 16; }
-__host__ __device__ inline size_t round8(size_t n) { return (n + 7) / 8 * 8; }
-
-// elements per pixel of an activation tile with c channels
+// channels padded to 16 bytes
 template <typename T>
-__host__ __device__ inline int act_pitch(int c) { return round16(c) + Cfg<T>::pad; }
-// elements per row of a weight chunk with C output channels
-__host__ __device__ inline int w_pitch(int C) { return round16(C) + 8; }
-
-// A wide input (the up pass, cin = 256): stage 1 streams its input through
-// the ring, scb channels of the (TH+4) x (TW+4) tile at a time with their
-// 9 * scb weight rows, instead of holding the whole input tile (150 KB in
-// f32 at 8 x 8), so a larger output tile fits. Chosen by shape.
-template <typename T>
-__host__ __device__ inline bool stream_input(int cin) {
-  return cin >= 128 && cin % Cfg<T>::scb == 0;
+__host__ __device__ inline int cin_pad(int c) {
+  return cdiv(c, Cfg<T>::kin) * Cfg<T>::kin;
 }
-// elements per pixel of a streamed input slice of SB channels (odd 16-byte
-// units for ldmatrix rows; 8 pixels x 4 lanes over 32 banks for the f32
-// fragments)
-template <typename T, int SB>
-__host__ __device__ inline int slice_pitch() { return SB + Cfg<T>::pad; }
-template <typename T, int SB>
-__host__ __device__ inline size_t slice_elems(int ih, int iw) {
-  return round8((size_t)ih * iw * slice_pitch<T, SB>());
-}
-
-// Elements of one ring stage: a weight chunk, or a streamed input slice and
-// its weight rows.
+// pixel pitch of an activation tile: an odd number of 16-byte units
 template <typename T>
-__host__ __device__ inline size_t ring_stage_elems(int cin, int C, int th, int tw) {
-  const size_t chunk = (size_t)kc_rows(C) * w_pitch(C);
-  if (!stream_input<T>(cin)) return chunk;
-  const size_t streamed =
-      slice_elems<T, Cfg<T>::scb>(th + 4, tw + 4) + (size_t)9 * Cfg<T>::scb * w_pitch(C);
-  return streamed > chunk ? streamed : chunk;
+__host__ __device__ inline int pitch(int c) {
+  return (cdiv(c, Cfg<T>::kin) | 1) * Cfg<T>::kin;
+}
+// input channels of one streamed chunk of a K x K stage
+template <typename T>
+__host__ __device__ inline int stream_sb(int K, int cin) {
+  constexpr int k = Cfg<T>::kstep;
+  if (K == 3) return cin % (2 * k) == 0 ? 2 * k : k;
+  return cin % (4 * k) == 0 ? 4 * k : cin % (2 * k) == 0 ? 2 * k : k;
+}
+// the fused route streams stage 1's input when it is wide
+template <typename T>
+__host__ __device__ inline bool fused_streams(int cin) {
+  return cin >= 128 && cin % Cfg<T>::kstep == 0;
+}
+// bytes of one K row of one n-block, per weight array
+template <typename T>
+__host__ __device__ constexpr int wrow() {
+  return NB * Cfg<T>::esz;
 }
 
-// The staged route: output channels per block, and input channels per ring
-// stage of a K x K stage whose input has cin channels (a 1 x 1 stage takes
-// 4 x scb where cin allows, so that a ring stage holds 64 or 32 rows of K).
+// One stage as the producer and the consumers walk it.
+struct Stage {
+  int K, cp;          // kernel size; channels per tap in the K order
+  int krows;          // K rows of one n-block (zero rows past K * K * cp)
+  int kc, n_chunks;   // K rows a chunk, chunks a round
+  int sb;             // > 0: streamed, sb input channels a chunk
+  int slice;          // bytes of a streamed chunk's input slice, 128-aligned
+  int oh, ow;         // output grid
+  int sw, sp;         // A source: width in pixels, pitch in elements
+  int n_nb;           // n-blocks this block computes
+  int pair;           // 1: the warpgroups take two n-blocks a round (see pair_mode)
+  long long lo_off;   // bytes from the hi array to the lo array (f32)
+};
+
+// A stage of few m64 tiles (at most MT, with two n-blocks or more) runs in
+// pair mode where the cost model rates it cheaper: the two warpgroups take
+// the same tiles and an n-block each, and a slot holds a chunk of each, so
+// that neither idles (one tile) or holds half the tiles the other could;
+// otherwise they split the tiles. Cost: rounds x (tiles a warpgroup + 1).
 template <typename T>
-__host__ __device__ inline constexpr int staged_nb() { return 8 * Cfg<T>::nt; }
-template <typename T>
-__host__ __device__ inline int staged_sb(int K, int cin) {
-  return K == 1 && cin % (4 * Cfg<T>::scb) == 0 ? 4 * Cfg<T>::scb : Cfg<T>::scb;
-}
-// Elements of one ring stage of the staged route: the (th+K-1) x (tw+K-1)
-// input slice and its K * K * SB weight rows of NB columns.
-template <typename T, int K, int SB>
-__host__ __device__ inline size_t staged_ring_elems(int th, int tw) {
-  return slice_elems<T, SB>(th + K - 1, tw + K - 1) + (size_t)K * K * SB * w_pitch(staged_nb<T>());
+__host__ __device__ inline int pair_mode(int sb, int n_nb, int oh, int ow) {
+  const int n_mt = cdiv(oh * ow, 64);
+  if (sb != 0 || n_nb < 2 || n_mt > Cfg<T>::mt) return 0;
+  return cdiv(n_nb, 2) * (n_mt + 1) < n_nb * (cdiv(n_mt, 2) + 1);
 }
 
-// Shared memory layout, in elements of the compute type: A (stages 1 and
-// 3), X (input tile unless stage 1 streams it, then stage 2), the ring.
 template <typename T>
-__host__ __device__ inline void buffer_elems(int cin, int C, int th, int tw, size_t* a,
-                                             size_t* x, size_t* w) {
-  const size_t mid = (size_t)(th + 2) * (tw + 2) * act_pitch<T>(C);
-  const size_t in =
-      stream_input<T>(cin) ? 0 : (size_t)(th + 4) * (tw + 4) * act_pitch<T>(cin);
-  *a = round8(mid);
-  *x = round8(in > mid ? in : mid);
-  *w = (size_t)Cfg<T>::stages * ring_stage_elems<T>(cin, C, th, tw);
-}
-
-// Rows [k0, k0 + kc_rows(C)) of one stage's weights, K ordered (tap, ci < cinp),
-// into a ring stage: zeros for ci >= cin, k >= ktot and columns >= C. A row
-// of w is ldc elements apart (ldc = C but in the staged route, whose block
-// takes C of the stage's ldc columns).
-template <typename T>
-__device__ __forceinline__ void load_w_chunk(T* dst, const T* __restrict__ w, int k0, int ktot,
-                                             int cin, int cinp, int C, int ldc) {
-  constexpr int V = 16 / sizeof(T);
-  const int C16 = round16(C), wp = w_pitch(C);
-  const int nv = C16 / V, KC = kc_rows(C);
-  if (C % V == 0 && ldc % V == 0) {
-    for (int idx = threadIdx.x; idx < KC * nv; idx += kThreads) {
-      const int r = idx / nv, col = (idx - r * nv) * V;
-      const int k = k0 + r, tap = k / cinp, ci = k - tap * cinp;
-      const bool ok = k < ktot && ci < cin && col < C;
-      const T* src = ok ? w + ((size_t)tap * cin + ci) * ldc + col : w;
-      cp_async16(dst + r * wp + col, src, ok ? 16 : 0);
-    }
-  } else {  // rows not 16-byte aligned: plain loads (ordered by the ring's barrier)
-    for (int idx = threadIdx.x; idx < KC * C16; idx += kThreads) {
-      const int r = idx / C16, col = idx - r * C16;
-      const int k = k0 + r, tap = k / cinp, ci = k - tap * cinp;
-      const bool ok = k < ktot && ci < cin && col < C;
-      dst[r * wp + col] = ok ? w[((size_t)tap * cin + ci) * ldc + col] : T(0.f);
-    }
-  }
-}
-
-// Ring stage for input channels [cb, cb + SB) of a streamed K x K stage:
-// the slice of the ih x iw input tile at slice_pitch (zeros past the image
-// edge), then the weight rows (tap, ci) of those channels (row stride ldc).
-template <typename T, int K, int SB>
-__device__ __forceinline__ void load_stream_chunk(T* dst, const T* __restrict__ xin, int H,
-                                                  int W, int cin, int gy0, int gx0, int ih,
-                                                  int iw, const T* __restrict__ w, int cb,
-                                                  int C, int ldc) {
-  constexpr int V = 16 / sizeof(T), SP = SB + Cfg<T>::pad;
-  const int n_pix = ih * iw;
-  for (int idx = threadIdx.x; idx < n_pix * (SB / V); idx += kThreads) {
-    const int p = idx / (SB / V), c = (idx % (SB / V)) * V;
-    const int gy = gy0 + p / iw, gx = gx0 + p % iw;
-    const bool ok = gy < H && gx < W;
-    const T* src = ok ? xin + ((size_t)gy * W + gx) * cin + cb + c : xin;
-    cp_async16(dst + p * SP + c, src, ok ? 16 : 0);
-  }
-  T* wd = dst + slice_elems<T, SB>(ih, iw);
-  const int C16 = round16(C), wp = w_pitch(C);
-  if (C % V == 0 && ldc % V == 0) {
-    const int nv = C16 / V;
-    for (int idx = threadIdx.x; idx < K * K * SB * nv; idx += kThreads) {
-      const int r = idx / nv, col = (idx - r * nv) * V;
-      const int tap = r / SB, ci = cb + r % SB;
-      const bool ok = col < C;
-      const T* src = ok ? w + ((size_t)tap * cin + ci) * ldc + col : w;
-      cp_async16(wd + r * wp + col, src, ok ? 16 : 0);
-    }
+__host__ __device__ inline Stage make_stage(int K, int cin, int oh, int ow, int sb, int n_nb,
+                                            int src_w, int src_pitch, int nb_total) {
+  Stage s;
+  s.K = K;
+  s.oh = oh;
+  s.ow = ow;
+  s.sb = sb;
+  s.n_nb = n_nb;
+  if (sb > 0) {
+    s.cp = sb;
+    s.krows = K * K * cin;
+    s.kc = K * sb;
+    s.n_chunks = cin / sb * K;
+    s.sw = ow + K - 1;
+    s.sp = sb;
+    s.slice = (int)r128((long long)oh * s.sw * sb * Cfg<T>::esz);
   } else {
-    for (int idx = threadIdx.x; idx < K * K * SB * C16; idx += kThreads) {
-      const int r = idx / C16, col = idx - r * C16;
-      const int tap = r / SB, ci = cb + r % SB;
-      wd[r * wp + col] = col < C ? w[((size_t)tap * cin + ci) * ldc + col] : T(0.f);
-    }
+    s.cp = cin_pad<T>(cin);
+    s.krows = cdiv(K * K * s.cp, Cfg<T>::kstep) * Cfg<T>::kstep;
+    s.kc = Cfg<T>::kc;
+    s.n_chunks = cdiv(s.krows, s.kc);
+    s.sw = src_w;
+    s.sp = src_pitch;
+    s.slice = 0;
   }
+  s.pair = pair_mode<T>(sb, n_nb, oh, ow);
+  s.lo_off = (long long)nb_total * s.krows * wrow<T>();
+  return s;
 }
 
-// Offset in a source tile of pixel p of a stage's (oh, ow) output grid
-// (rows past P clamp to P - 1; their results are not stored).
-__device__ __forceinline__ int pixel_offset(int p, int P, int ow, int sw, int sp) {
+// bytes of the ring slot a stage's largest chunk needs
+template <typename T>
+__host__ __device__ inline long long slot_need(const Stage& s) {
+  return s.slice + (long long)s.kc * wrow<T>() * Cfg<T>::arrays * (s.pair ? 2 : 1);
+}
+
+// Stage i (0..3) of the fused route.
+template <typename T>
+__host__ __device__ inline Stage fused_stage(int i, int cin, int C, int th, int tw) {
+  const int n = cdiv(C, NB);
+  const int mw = tw + 2, mp = pitch<T>(C);
+  if (i == 0)
+    return fused_streams<T>(cin)
+               ? make_stage<T>(3, cin, th + 2, mw, stream_sb<T>(3, cin), n, 0, 0, n)
+               : make_stage<T>(3, cin, th + 2, mw, 0, n, tw + 4, pitch<T>(cin), n);
+  if (i < 3) return make_stage<T>(1, C, th + 2, mw, 0, n, mw, mp, n);
+  return make_stage<T>(3, C, th, tw, 0, n, mw, mp, n);
+}
+
+// Shared memory: the mbarriers, then (fused) A = the intermediate buffer and
+// X = the input tile, stage 2's output and the output tile, then the ring.
+struct Layout {
+  long long a, x, ring, slot, total;
+  int slots;
+};
+
+__host__ __device__ inline Layout finish_layout(Layout L, long long slot) {
+  L.slot = r128(slot);
+  long long s = (kMaxSmem - L.ring) / L.slot;
+  s = s > kMaxSlots ? kMaxSlots : (s < 2 ? 2 : s);
+  L.slots = (int)s;
+  L.total = L.ring + s * L.slot;
+  return L;
+}
+
+template <typename T>
+__host__ __device__ inline Layout fused_layout(int cin, int C, int th, int tw) {
+  constexpr int e = Cfg<T>::esz;
+  const long long mid = r128((long long)(th + 2) * (tw + 2) * pitch<T>(C) * e);
+  const long long in =
+      fused_streams<T>(cin) ? 0 : r128((long long)(th + 4) * (tw + 4) * pitch<T>(cin) * e);
+  Layout L;
+  L.a = kBarBytes;
+  L.x = L.a + mid;
+  L.ring = L.x + lmax(in, mid);
+  long long slot = 0;
+  for (int i = 0; i < 4; ++i) slot = lmax(slot, slot_need<T>(fused_stage<T>(i, cin, C, th, tw)));
+  return finish_layout(L, slot);
+}
+
+// The staged route: the barriers, the output tile's staging area, the ring.
+template <typename T>
+__host__ __device__ inline Layout staged_layout(int K, int cin, int th, int tw) {
+  const Stage s = make_stage<T>(K, cin, th, tw, stream_sb<T>(K, cin), 1, 0, 0, 1);
+  Layout L;
+  L.a = L.x = kBarBytes;
+  L.ring = kBarBytes + r128((long long)th * tw * pitch<T>(NB) * Cfg<T>::esz);
+  return finish_layout(L, slot_need<T>(s));
+}
+
+struct Ring {
+  unsigned char* base;
+  int slot_bytes, slots;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+// Rounds of a stage: R per n-block (per pair of n-blocks in pair mode,
+// where R = 1), over n_outer n-blocks (pairs).
+template <typename T>
+__host__ __device__ inline int rounds_per_nb(const Stage& s) {
+  return s.pair ? 1 : cdiv(cdiv(s.oh * s.ow, 64), 2 * Cfg<T>::mt);
+}
+__host__ __device__ inline int n_outer(const Stage& s) { return s.pair ? cdiv(s.n_nb, 2) : s.n_nb; }
+
+// The producer (one thread): every chunk of every round of stage s, in the
+// order the consumers take them. w: the block's first n-block.
+template <typename T>
+__device__ __forceinline__ void produce(const Stage& s, const unsigned char* w, const Ring& r,
+                                        int& slot, uint32_t& phase, const void* tmap, int gx0,
+                                        int gy0, int img) {
+  const int R = rounds_per_nb<T>(s), half = s.kc * wrow<T>() * Cfg<T>::arrays;
+  const uint32_t slice_tx = s.sb ? (uint32_t)(s.oh * s.sw * s.sb * Cfg<T>::esz) : 0u;
+  for (int q = 0; q < n_outer(s); ++q)
+    for (int rp = 0; rp < R; ++rp)
+      for (int c = 0; c < s.n_chunks; ++c) {
+        mbar_wait(&r.empty[slot], phase ^ 1);
+        const int rows = min(s.kc, s.krows - c * s.kc);
+        const uint32_t wb = (uint32_t)(rows * wrow<T>());
+        const int nb = s.pair ? 2 * q : q, n_cp = s.pair && nb + 1 < s.n_nb ? 2 : 1;
+        unsigned char* dst = r.base + (size_t)slot * r.slot_bytes;
+        mbar_arrive_tx(&r.full[slot], slice_tx + wb * Cfg<T>::arrays * n_cp);
+        if (s.sb) tma_load_4d(dst, tmap, (c / s.K) * s.sb, gx0, gy0 + c % s.K, img, &r.full[slot]);
+        for (int j = 0; j < n_cp; ++j) {
+          const unsigned char* src =
+              w + ((long long)(nb + j) * s.krows + (long long)c * s.kc) * wrow<T>();
+          unsigned char* d = dst + s.slice + j * half;
+          bulk_g2s(d, src, wb, &r.full[slot]);
+          if (Cfg<T>::arrays == 2) bulk_g2s(d + wb, src + s.lo_off, wb, &r.full[slot]);
+        }
+        if (++slot == r.slots) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+}
+
+// Offset in the A source of pixel p of the stage's output grid (rows past
+// P clamp to P - 1; their results are not stored).
+__device__ __forceinline__ int pixel_offset(const Stage& s, int p, int P) {
   p = min(p, P - 1);
-  return ((p / ow) * sw + p % ow) * sp;
+  return ((p / s.ow) * s.sw + p % s.ow) * s.sp;
 }
 
-struct StageGeom {
-  int sw, sp, cinp, n0, C16, wp;
-};
+// Offset in the A source of K row kg: within the chunk (streamed: tap dx of
+// the slice's tap row, channel) or of the stage (tap, channel); rows past
+// the stage's K read row 0 (their weights are zero).
+__device__ __forceinline__ int k_shift(const Stage& s, int kg) {
+  if (s.sb) {
+    const int dx = kg / s.sb;
+    return dx * s.sp + (kg - dx * s.sb);
+  }
+  if (kg >= s.K * s.K * s.cp) kg = 0;
+  const int tap = kg / s.cp;
+  return ((tap / s.K) * s.sw + tap % s.K) * s.sp + (kg - tap * s.cp);
+}
 
-// Where a streamed stage reads its input: the image, its size, the block's
-// input tile origin and the input tile's size.
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1, bool two) {
+  if (two)
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  else
+    p[0] = v0;
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1, bool two) {
+  if (two)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  else
+    p[0] = __float2bfloat16_rn(v0);
+}
+
+// Where a stage's epilogue writes: a shared-memory tile of the output grid
+// (pixel pitch dp, columns < dcols), columns col0 + local of C.
 template <typename T>
-struct StreamSrc {
-  const T* x;
-  int H, W, gy0, gx0, ih, iw;
+struct Epi {
+  T* dst;
+  int dp, dcols;
+  const float* bias;
+  int C, col0;
 };
 
-// Source offset of row k0 + kk of a K x K stage's K order (tap, ci), where
-// the chunk starts at tap0, ci0; a streamed chunk (SB = scb) is 9 taps of
-// SB channels from tap 0, so its tap and channel are known at compile time.
-template <int K, int SB>
-__device__ __forceinline__ int tap_shift(const StageGeom& s, int tap0, int ci0, int kk) {
-  int tap, ci;
-  if (SB > 0) {
-    tap = kk / SB;
-    ci = kk % SB;
-  } else {
-    tap = tap0;
-    ci = ci0 + kk;
-    while (ci >= s.cinp) {
-      ci -= s.cinp;
-      ++tap;
-    }
+// One k step of a consumer warpgroup on MTA m64 tiles: A into registers
+// (buffer BUF), then the wgmmas on the slot's weights at wk, one group
+// committed; the group before it is waited for, so BUF ^ 1 is free for the
+// next step. kg: the step's first K row.
+template <int MTA, int BUF>
+__device__ __forceinline__ void kstep_bf16(const Stage& s, const __nv_bfloat16* a_src,
+                                           const int (&off)[MTA][2], int kg,
+                                           const unsigned char* wk, int lane,
+                                           uint32_t (&a)[2][MTA][4], float (&acc)[MTA][32]) {
+  const int sh = k_shift(s, kg + (lane >> 4) * 8);
+#pragma unroll
+  for (int mi = 0; mi < MTA; ++mi) ldmatrix_x4(a[BUF][mi], a_src + off[mi][0] + sh);
+  const uint64_t db = desc_kmajor(wk, NB * 16, 128);
+  wgmma_fence();
+#pragma unroll
+  for (int mi = 0; mi < MTA; ++mi) wgmma_bf16(acc[mi], a[BUF][mi], db, 1);
+  wgmma_commit();
+  wgmma_wait<1>();
+}
+
+// The same in 3xTF32: A split into hi (ah) and lo (al), the weights' hi
+// array at wk and lo at wk + wb; first: the chunk's first step, which
+// starts the partial sum from zero.
+template <int MTA, int BUF>
+__device__ __forceinline__ void kstep_tf32(const Stage& s, const float* a_src,
+                                           const int (&off)[MTA][2], int kg,
+                                           const unsigned char* wk, int wb, int lane,
+                                           uint32_t (&ah)[2][MTA][4], uint32_t (&al)[2][MTA][4],
+                                           float (&part)[MTA][32], bool first) {
+  const int t = lane & 3;
+  const int sh0 = k_shift(s, kg + t), sh1 = k_shift(s, kg + t + 4);
+#pragma unroll
+  for (int mi = 0; mi < MTA; ++mi) {
+    split_tf32(a_src[off[mi][0] + sh0], ah[BUF][mi][0], al[BUF][mi][0]);
+    split_tf32(a_src[off[mi][1] + sh0], ah[BUF][mi][1], al[BUF][mi][1]);
+    split_tf32(a_src[off[mi][0] + sh1], ah[BUF][mi][2], al[BUF][mi][2]);
+    split_tf32(a_src[off[mi][1] + sh1], ah[BUF][mi][3], al[BUF][mi][3]);
   }
-  return ((tap / K) * s.sw + tap % K) * s.sp + ci;
+  const uint64_t dh = desc_kmajor(wk, NB * 16, 128);
+  const uint64_t dl = desc_kmajor(wk + wb, NB * 16, 128);
+  wgmma_fence();
+#pragma unroll
+  for (int mi = 0; mi < MTA; ++mi) wgmma_tf32(part[mi], al[BUF][mi], dh, first ? 0 : 1);
+#pragma unroll
+  for (int mi = 0; mi < MTA; ++mi) wgmma_tf32(part[mi], ah[BUF][mi], dl, 1);
+#pragma unroll
+  for (int mi = 0; mi < MTA; ++mi) wgmma_tf32(part[mi], ah[BUF][mi], dh, 1);
+  wgmma_commit();
+  wgmma_wait<1>();
 }
 
-// Ring stage rows 0 .. kn - 1 (kn a multiple of 16; the stage starts at
-// tap0, ci0 of the K order) into acc. The fragments of the next k step are
-// loaded before the mma's of this one are issued.
-// bf16: off[mi][0] is the source offset of this lane's ldmatrix row of m16
-// tile mi, with its k half.
-constexpr int kMtB = Cfg<__nv_bfloat16>::mt, kNtB = Cfg<__nv_bfloat16>::nt;
-template <int K, int SB>
-__device__ __forceinline__ void mma_chunk(const __nv_bfloat16* src, const int off[kMtB][2],
-                                          const __nv_bfloat16* wc, int tap0, int ci0, int kn,
-                                          const StageGeom& s, float acc[kMtB][kNtB][4]) {
-  const int lane = threadIdx.x & 31;
-  const int b_k = (lane & 7) + ((lane >> 3) & 1) * 8, b_n = (lane >> 4) * 8;
-  uint32_t a[2][kMtB][4], b[2][kNtB / 2][4];
-  auto load = [&](int buf, int kk) {
-    const int shift = tap_shift<K, SB>(s, tap0, ci0, kk);
+// One round of a consumer warpgroup: MTA m64 tiles from tile m_lo, n-block
+// nb, its weights at byte wofs of each slot. MTA = 0: the warpgroup has no
+// tile this round and only passes the slots on.
+template <typename T, int MTA>
+__device__ __forceinline__ void consume_round(const Stage& s, const T* src, const Ring& r,
+                                              int& slot, uint32_t& phase, const Epi<T>& e,
+                                              int nb, int m_lo, int wofs, int warp, int lane) {
+  constexpr int KS = Cfg<T>::kstep, M = MTA > 0 ? MTA : 1;
+  constexpr bool BF = sizeof(T) == 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int P = s.oh * s.ow;
+  int off[M][2];
+  float acc[M][32];
 #pragma unroll
-    for (int mi = 0; mi < kMtB; ++mi) ldmatrix_x4(a[buf][mi], src + off[mi][0] + shift);
-#pragma unroll
-    for (int np = 0; np < kNtB / 2; ++np)
-      if (s.n0 + np * 16 < s.C16)
-        ldmatrix_x4_trans(b[buf][np], wc + (kk + b_k) * s.wp + s.n0 + np * 16 + b_n);
-  };
-  load(0, 0);
-#pragma unroll
-  for (int kk = 0; kk < KC_MAX; kk += 16) {
-    if (kk >= kn) break;
-    const int cur = (kk / 16) & 1;
-    if (kk + 16 < kn) load(cur ^ 1, kk + 16);
-#pragma unroll
-    for (int np = 0; np < kNtB / 2; ++np) {
-      if (s.n0 + np * 16 >= s.C16) break;
-#pragma unroll
-      for (int mi = 0; mi < kMtB; ++mi) {
-        mma_bf16(acc[mi][2 * np], a[cur][mi], b[cur][np]);
-        mma_bf16(acc[mi][2 * np + 1], a[cur][mi], b[cur][np] + 2);
-      }
+  for (int mi = 0; mi < M; ++mi) {
+    const int row0 = (m_lo + mi) * 64 + warp * 16;
+    if (BF) {
+      off[mi][0] = pixel_offset(s, row0 + (lane & 7) + ((lane >> 3) & 1) * 8, P);
+      off[mi][1] = 0;
+    } else {
+      off[mi][0] = pixel_offset(s, row0 + g, P);
+      off[mi][1] = pixel_offset(s, row0 + g + 8, P);
     }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[mi][j] = 0.f;
   }
-}
-
-// f32: off[mi][h] is the source offset of row g + 8h of m16 tile mi. The
-// tensor cores round a float32 accumulator toward zero, so the chunk's sum
-// starts from zero and is added to acc with an ordinary (round to nearest)
-// float32 add: over K = 9 * 256 the drift would otherwise reach 1e-4. The
-// three products go in three passes over the n8 tiles, so that no mma waits
-// on the one before it.
-constexpr int kMtF = Cfg<float>::mt, kNtF = Cfg<float>::nt;
-template <int K, int SB>
-__device__ __forceinline__ void mma_chunk(const float* src, const int off[kMtF][2],
-                                          const float* wc, int tap0, int ci0, int kn,
-                                          const StageGeom& s, float acc[kMtF][kNtF][4]) {
-  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-  float part[kMtF][kNtF][4];
+  for (int c = 0; c < s.n_chunks; ++c) {
+    mbar_wait(&r.full[slot], phase);
+    if constexpr (MTA > 0) {
+      const unsigned char* base = r.base + (size_t)slot * r.slot_bytes;
+      const T* a_src = s.sb ? reinterpret_cast<const T*>(base) : src;
+      const unsigned char* wsl = base + s.slice + wofs;
+      const int rows = min(s.kc, s.krows - c * s.kc), nks = rows / KS;
+      const int k0 = s.sb ? 0 : c * s.kc;
+      const int step = 2 * NB * 16;  // bytes of weights a k step reads
+      uint32_t a[2][MTA][4];
+      int ks = 0;
+      if constexpr (BF) {
+#pragma unroll 1
+        for (; ks + 2 <= nks; ks += 2) {
+          kstep_bf16<MTA, 0>(s, a_src, off, k0 + ks * KS, wsl + ks * step, lane, a, acc);
+          kstep_bf16<MTA, 1>(s, a_src, off, k0 + (ks + 1) * KS, wsl + (ks + 1) * step, lane, a,
+                             acc);
+        }
+        if (ks < nks)
+          kstep_bf16<MTA, 0>(s, a_src, off, k0 + ks * KS, wsl + ks * step, lane, a, acc);
+        wgmma_wait<0>();
 #pragma unroll
-  for (int mi = 0; mi < kMtF; ++mi)
-#pragma unroll
-    for (int j = 0; j < kNtF; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) part[mi][j][r] = 0.f;
-  float ra[2][kMtF][4], rb[2][kNtF][2];
-  auto load = [&](int buf, int kk) {
-    const int shift = tap_shift<K, SB>(s, tap0, ci0, kk) + tq;
-#pragma unroll
-    for (int mi = 0; mi < kMtF; ++mi) {
-      const float* p0 = src + off[mi][0] + shift;
-      const float* p1 = src + off[mi][1] + shift;
-      ra[buf][mi][0] = p0[0];
-      ra[buf][mi][1] = p1[0];
-      ra[buf][mi][2] = p0[4];
-      ra[buf][mi][3] = p1[4];
-    }
-#pragma unroll
-    for (int j = 0; j < kNtF; ++j) {  // tiles past C16 read the last one, unused
-      const float* p = wc + (kk + tq) * s.wp + min(s.n0 + j * 8, s.C16 - 8) + gq;
-      rb[buf][j][0] = p[0];
-      rb[buf][j][1] = p[4 * s.wp];
-    }
-  };
-  load(0, 0);
-#pragma unroll
-  for (int kk = 0; kk < KC_MAX; kk += 8) {
-    if (kk >= kn) break;
-    const int cur = (kk / 8) & 1;
-    uint32_t a_hi[kMtF][4], a_lo[kMtF][4], b_hi[kNtF][2], b_lo[kNtF][2];
-#pragma unroll
-    for (int mi = 0; mi < kMtF; ++mi) split_frag<4>(ra[cur][mi], a_hi[mi], a_lo[mi]);
-#pragma unroll
-    for (int j = 0; j < kNtF; ++j) split_frag<2>(rb[cur][j], b_hi[j], b_lo[j]);
-    if (kk + 8 < kn) load(cur ^ 1, kk + 8);
-#pragma unroll
-    for (int j = 0; j < kNtF; ++j)
-#pragma unroll
-      for (int mi = 0; mi < kMtF; ++mi) mma_tf32(part[mi][j], a_lo[mi], b_hi[j]);
-#pragma unroll
-    for (int j = 0; j < kNtF; ++j)
-#pragma unroll
-      for (int mi = 0; mi < kMtF; ++mi) mma_tf32(part[mi][j], a_hi[mi], b_lo[j]);
-#pragma unroll
-    for (int j = 0; j < kNtF; ++j)
-#pragma unroll
-      for (int mi = 0; mi < kMtF; ++mi) mma_tf32(part[mi][j], a_hi[mi], b_hi[j]);
-  }
-#pragma unroll
-  for (int mi = 0; mi < kMtF; ++mi)
-#pragma unroll
-    for (int j = 0; j < kNtF; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][j][r] += part[mi][j][r];
-}
-
-__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-__device__ __forceinline__ float round_to(float v, float*) { return v; }
-__device__ __forceinline__ __nv_bfloat16 round_to(float v, __nv_bfloat16*) {
-  return __float2bfloat16_rn(v);
-}
-
-// One K x K VALID conv stage of the block's tile.
-//   src: (sh, sw) pixels of pitch sp in shared memory, cin channels
-//   dst: (oh, ow) pixels of pitch dp in shared memory, or, when
-//        gout != nullptr, the image's NHWC output at tile origin
-//        (gy0, gx0), clipped to (h_out, w_out)
-// C output channels, whose weight rows and output pixels are ldc elements
-// apart in device memory (ldc = C but in the staged route). Warps take
-// units of (MT*16 pixels x NT*8 channels) in rounds; every round streams
-// the stage's weights through the ring once, ring stages of ring_stride
-// elements. SB > 0: src is the global input in ss, streamed through the
-// ring SB channels at a time (sw, sp describe the slice).
-template <typename T, int K, int SB = 0>
-__device__ __forceinline__ void conv_stage(const T* src, int sw, int sp, int cin,
-                                           const T* __restrict__ w, const float* __restrict__ bias,
-                                           int oh, int ow, int C, int ldc, T* ring,
-                                           int ring_stride, T* dst, int dp, T* __restrict__ gout,
-                                           int gy0, int gx0, int h_out, int w_out,
-                                           StreamSrc<T> ss = {}) {
-  constexpr int S = Cfg<T>::stages, MT = Cfg<T>::mt, NT = Cfg<T>::nt;
-  constexpr int WARPS = kThreads / 32, UM = 16 * MT, UN = 8 * NT;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int P = oh * ow;
-  StageGeom s;
-  s.sw = sw;
-  s.sp = sp;
-  s.cinp = (cin + Cfg<T>::kpad - 1) / Cfg<T>::kpad * Cfg<T>::kpad;
-  s.C16 = round16(C);
-  s.wp = w_pitch(C);
-  const int ktot = K * K * s.cinp;
-  const int KC = SB > 0 ? K * K * SB : kc_rows(C);
-  const int n_chunks = SB > 0 ? cin / SB : (ktot + KC - 1) / KC;
-  // a streamed ring stage holds the input slice first, its weights after it
-  const int w_at = SB > 0 ? (int)slice_elems<T, (SB > 0 ? SB : 1)>(ss.ih, ss.iw) : 0;
-  auto load = [&](int i) {
-    T* dst_i = ring + (i % S) * ring_stride;
-    if constexpr (SB > 0)
-      load_stream_chunk<T, K, SB>(dst_i, ss.x, ss.H, ss.W, cin, ss.gy0, ss.gx0, ss.ih, ss.iw, w,
-                                  i * SB, C, ldc);
-    else
-      load_w_chunk(dst_i, w, i * KC, ktot, cin, s.cinp, C, ldc);
-  };
-  const int n_m = (P + UM - 1) / UM, n_n = (s.C16 + UN - 1) / UN;
-  const int n_units = n_m * n_n;
-
-  for (int round0 = 0; round0 < n_units; round0 += WARPS) {
-    const int unit = round0 + warp;
-    const bool active = unit < n_units;
-    const int m0 = (unit % n_m) * UM;
-    s.n0 = (unit / n_m) * UN;
-    int off[MT][2];
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      if (sizeof(T) == 2) {  // ldmatrix: this lane's row, and its k half
-        const int m = (lane & 7) + ((lane >> 3) & 1) * 8;
-        off[mi][0] = pixel_offset(m0 + mi * 16 + m, P, ow, sw, sp) + (lane >> 4) * 8;
-        off[mi][1] = 0;
+        for (int mi = 0; mi < MTA; ++mi) pin(acc[mi]);
       } else {
-        off[mi][0] = pixel_offset(m0 + mi * 16 + gq, P, ow, sw, sp);
-        off[mi][1] = pixel_offset(m0 + mi * 16 + gq + 8, P, ow, sw, sp);
-      }
-    }
-    float acc[MT][NT][4];
+        // each chunk summed from zero, then added to the sum in f32
+        const int wb = rows * wrow<T>();  // bytes from the hi weights to the lo
+        uint32_t al[2][MTA][4];
+        float part[MTA][32];
+#pragma unroll 1
+        for (; ks + 2 <= nks; ks += 2) {
+          kstep_tf32<MTA, 0>(s, a_src, off, k0 + ks * KS, wsl + ks * step, wb, lane, a, al, part,
+                             ks == 0);
+          kstep_tf32<MTA, 1>(s, a_src, off, k0 + (ks + 1) * KS, wsl + (ks + 1) * step, wb, lane, a,
+                             al, part, false);
+        }
+        if (ks < nks)
+          kstep_tf32<MTA, 0>(s, a_src, off, k0 + ks * KS, wsl + ks * step, wb, lane, a, al, part,
+                             ks == 0);
+        wgmma_wait<0>();
 #pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
+        for (int mi = 0; mi < MTA; ++mi) {
+          pin(part[mi]);
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0.f;
-
-    __syncthreads();  // the ring's previous contents and src are settled
-#pragma unroll
-    for (int i = 0; i < S - 1; ++i) {
-      if (i < n_chunks) load(i);
-      cp_async_commit();
-    }
-    for (int kc = 0; kc < n_chunks; ++kc) {
-      cp_async_wait<S - 2>();
-      __syncthreads();
-      if (kc + S - 1 < n_chunks) load(kc + S - 1);
-      cp_async_commit();
-      if (active) {
-        const T* stage = ring + (kc % S) * ring_stride;
-        if (SB > 0) {
-          mma_chunk<K, SB>(stage, off, stage + w_at, 0, 0, KC, s, acc);
-        } else {
-          const int tap0 = kc * KC / s.cinp;
-          mma_chunk<K, SB>(src, off, stage, tap0, kc * KC - tap0 * s.cinp,
-                           min(KC, ktot - kc * KC), s, acc);
+          for (int j = 0; j < 32; ++j) acc[mi][j] += part[mi][j];
         }
       }
     }
-    if (!active) continue;
-
-    // bias + ReLU, rounded to the compute type; padded channels (C..C16)
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&r.empty[slot]);
+    if (++slot == r.slots) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  if constexpr (MTA > 0) {
+    // bias + ReLU, rounded to the compute type; padded columns (C .. cin_pad)
     // come out as zeros, which the next stage's zero weight rows ignore
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int ch = s.n0 + j * 8 + 2 * tq;
-      if (s.n0 + j * 8 >= s.C16) break;
-      const float b0 = ch < C ? bias[ch] : 0.f, b1 = ch + 1 < C ? bias[ch + 1] : 0.f;
+    for (int j = 0; j < 8; ++j) {
+      const int col = nb * NB + 8 * j + 2 * t, gc = e.col0 + col;
+      const float b0 = gc < e.C ? e.bias[gc] : 0.f, b1 = gc + 1 < e.C ? e.bias[gc + 1] : 0.f;
 #pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
+      for (int mi = 0; mi < MTA; ++mi)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int p = m0 + mi * 16 + gq + 8 * h;
-          if (p >= P) continue;
-          const float v0 = fmaxf(acc[mi][j][2 * h] + b0, 0.f);
-          const float v1 = fmaxf(acc[mi][j][2 * h + 1] + b1, 0.f);
-          if (gout == nullptr) {
-            store_pair(dst + p * dp + ch, v0, v1);
-          } else {
-            const int gy = gy0 + p / ow, gx = gx0 + p % ow;
-            if (gy >= h_out || gx >= w_out) continue;
-            T* o = gout + ((size_t)gy * w_out + gx) * ldc;
-            if (ch < C) o[ch] = round_to(v0, o);
-            if (ch + 1 < C) o[ch + 1] = round_to(v1, o);
-          }
+          const int p = (m_lo + mi) * 64 + warp * 16 + g + 8 * h;
+          if (p < P && col < e.dcols)
+            store_pair(e.dst + p * e.dp + col, fmaxf(acc[mi][4 * j + 2 * h] + b0, 0.f),
+                       fmaxf(acc[mi][4 * j + 2 * h + 1] + b1, 0.f), col + 1 < e.dcols);
         }
-      }
     }
   }
+}
+
+// The consumers (threads 128..383): every round of stage s. src: the A tile
+// (unless streamed). The two warpgroups split each n-block's m64 tiles into
+// balanced ranges of at most MT, or, in pair mode, take the same tiles and
+// an n-block each.
+template <typename T>
+__device__ __forceinline__ void consume(const Stage& s, const T* src, const Ring& r, int& slot,
+                                        uint32_t& phase, const Epi<T>& e) {
+  constexpr int MT = Cfg<T>::mt;
+  // warp-uniform (a shuffle from lane 0), so that the branches on it are
+  // uniform to the compiler and the wgmmas behind them are not serialised
+  const int wgi = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7) - 1, 0);
+  const int warp = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5) & 3, 0);
+  const int lane = threadIdx.x & 31;
+  const int n_mt = cdiv(s.oh * s.ow, 64), R = rounds_per_nb<T>(s);
+  const int half = s.kc * wrow<T>() * Cfg<T>::arrays;
+  for (int q = 0; q < n_outer(s); ++q)
+    for (int rp = 0; rp < R; ++rp) {
+      int nb, m_lo, m_cnt, wofs = 0;
+      if (s.pair) {
+        nb = 2 * q + wgi;
+        m_lo = 0;
+        m_cnt = nb < s.n_nb ? n_mt : 0;
+        wofs = wgi * half;
+      } else {
+        const int i = 2 * rp + wgi;
+        nb = q;
+        m_lo = i * n_mt / (2 * R);
+        m_cnt = (i + 1) * n_mt / (2 * R) - m_lo;
+      }
+      switch (m_cnt) {
+        case 1:
+          consume_round<T, 1>(s, src, r, slot, phase, e, nb, m_lo, wofs, warp, lane);
+          break;
+        case 2:
+          consume_round<T, (MT >= 2 ? 2 : 1)>(s, src, r, slot, phase, e, nb, m_lo, wofs,
+                                              warp, lane);
+          break;
+        case 3:
+          consume_round<T, (MT >= 3 ? 3 : 1)>(s, src, r, slot, phase, e, nb, m_lo, wofs,
+                                              warp, lane);
+          break;
+        case 4:
+          consume_round<T, (MT >= 4 ? 4 : 1)>(s, src, r, slot, phase, e, nb, m_lo, wofs,
+                                              warp, lane);
+          break;
+        default:
+          consume_round<T, 0>(s, src, r, slot, phase, e, nb, m_lo, wofs, warp, lane);
+      }
+    }
+}
+
+// Copy the th x tw output tile staged in shared memory (pixel pitch sp,
+// columns [0, n) of the image's columns [col0, col0 + n)) to the image,
+// clipped to (h_out, w_out); 16-byte stores where the rows allow.
+template <typename T>
+__device__ __forceinline__ void store_tile(const T* st, int sp, T* __restrict__ out, int ldc,
+                                           int col0, int n, int gy0, int gx0, int th, int tw,
+                                           int h_out, int w_out) {
+  constexpr int V = Cfg<T>::kin;
+  const int tid = threadIdx.x - (kThreads - kConsumers);
+  const int rows = min(th, h_out - gy0), cols = min(tw, w_out - gx0);
+  if (ldc % V == 0 && n % V == 0) {
+    const int vpp = n / V;
+    for (int idx = tid; idx < rows * cols * vpp; idx += kConsumers) {
+      const int q = idx / vpp, v = idx - q * vpp, y = q / cols, x = q - y * cols;
+      *reinterpret_cast<int4*>(out + ((size_t)(gy0 + y) * w_out + gx0 + x) * ldc + col0 + v * V) =
+          *reinterpret_cast<const int4*>(st + (y * tw + x) * sp + v * V);
+    }
+  } else {
+    for (int idx = tid; idx < rows * cols * n; idx += kConsumers) {
+      const int q = idx / n, ch = idx - q * n, y = q / cols, x = q - y * cols;
+      out[((size_t)(gy0 + y) * w_out + gx0 + x) * ldc + col0 + ch] = st[(y * tw + x) * sp + ch];
+    }
+  }
+}
+
+// Shared setup of both kernels: barriers, then the role split. Returns the
+// ring.
+__device__ __forceinline__ Ring init_ring(unsigned char* smem, const Layout& L) {
+  Ring r;
+  r.full = reinterpret_cast<uint64_t*>(smem);
+  r.empty = r.full + kMaxSlots;
+  r.base = smem + L.ring;
+  r.slot_bytes = (int)L.slot;
+  r.slots = L.slots;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < r.slots; ++i) {
+      mbar_init(&r.full[i], 1);
+      mbar_init(&r.empty[i], kEmptyArrivals);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return r;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-conv_pass_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* __restrict__ b1,
-                 const T* __restrict__ w2, const float* __restrict__ b2,
-                 const T* __restrict__ w3, const float* __restrict__ b3,
-                 const T* __restrict__ w4, const float* __restrict__ b4, T* __restrict__ out,
-                 int H, int W, int cin, int C, int th, int tw) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  size_t a_elems, x_elems, w_elems;
-  buffer_elems<T>(cin, C, th, tw, &a_elems, &x_elems, &w_elems);
-  T* buf_a = reinterpret_cast<T*>(smem_raw);
-  T* buf_x = buf_a + a_elems;
-  T* ring = buf_x + x_elems;
-  const int ring_stride = (int)ring_stage_elems<T>(cin, C, th, tw);
-
+conv_pass_kernel(const __grid_constant__ CUtensorMap tmap, const T* __restrict__ x,
+                 const unsigned char* __restrict__ w1, const float* __restrict__ b1,
+                 const unsigned char* __restrict__ w2, const float* __restrict__ b2,
+                 const unsigned char* __restrict__ w3, const float* __restrict__ b3,
+                 const unsigned char* __restrict__ w4, const float* __restrict__ b4,
+                 T* __restrict__ out, int H, int W, int cin, int C, int th, int tw) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L = fused_layout<T>(cin, C, th, tw);
+  const Ring r = init_ring(smem, L);
   const int h_out = H - 4, w_out = W - 4;
-  const int tiles_x = (w_out + tw - 1) / tw;
-  const int gy0 = (blockIdx.x / tiles_x) * th;
-  const int gx0 = (blockIdx.x % tiles_x) * tw;
+  const int tiles_x = cdiv(w_out, tw);
+  const int gy0 = (blockIdx.x / tiles_x) * th, gx0 = (blockIdx.x % tiles_x) * tw;
   const int img = blockIdx.y;
-  const T* xin = x + (size_t)img * H * W * cin;
 
-  const int iw = tw + 4, mh = th + 2, mw = tw + 2, mp = act_pitch<T>(C);
-  if (stream_input<T>(cin)) {
-    const StreamSrc<T> ss = {xin, H, W, gy0, gx0, th + 4, iw};
-    conv_stage<T, 3, Cfg<T>::scb>(nullptr, iw, slice_pitch<T, Cfg<T>::scb>(), cin, w1, b1, mh,
-                                  mw, C, C, ring, ring_stride, buf_a, mp, nullptr, 0, 0, 0, 0,
-                                  ss);
-    conv_stage<T, 1>(buf_a, mw, mp, C, w2, b2, mh, mw, C, C, ring, ring_stride, buf_x, mp,
-                     nullptr, 0, 0, 0, 0);
-    conv_stage<T, 1>(buf_x, mw, mp, C, w3, b3, mh, mw, C, C, ring, ring_stride, buf_a, mp,
-                     nullptr, 0, 0, 0, 0);
-    conv_stage<T, 3>(buf_a, mw, mp, C, w4, b4, th, tw, C, C, ring, ring_stride, nullptr, 0,
-                     out + (size_t)img * h_out * w_out * C, gy0, gx0, h_out, w_out);
-    return;
-  }
-
-  // input tile (th+4, tw+4, cin16) at pitch act_pitch(cin); zeros past the
-  // image edge (they only feed outputs that are clipped away) and past cin
-  constexpr int V = 16 / sizeof(T);
-  const int ip = act_pitch<T>(cin), cin16 = round16(cin);
-  const int n_pix = (th + 4) * iw;
-  if (cin % V == 0) {
-    const int nv = cin16 / V;
-    for (int idx = threadIdx.x; idx < n_pix * nv; idx += kThreads) {
-      const int p = idx / nv, ci = (idx - p * nv) * V;
-      const int gy = gy0 + p / iw, gx = gx0 + p % iw;
-      const bool ok = gy < H && gx < W && ci < cin;
-      const T* src = ok ? xin + ((size_t)gy * W + gx) * cin + ci : xin;
-      cp_async16(buf_x + p * ip + ci, src, ok ? 16 : 0);
+  // the role split on a warp-uniform warpgroup index, one if / else that
+  // never reconverges, so that setmaxnreg sets each side's register budget
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (role == 0) {  // producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < 4; ++i)
+        produce<T>(fused_stage<T>(i, cin, C, th, tw), i == 0 ? w1 : i == 1 ? w2 : i == 2 ? w3 : w4,
+                   r, slot, phase, &tmap, gx0, gy0, img);
     }
   } else {
-    for (int idx = threadIdx.x; idx < n_pix * cin16; idx += kThreads) {
-      const int p = idx / cin16, ci = idx - p * cin16;
-      const int gy = gy0 + p / iw, gx = gx0 + p % iw;
-      buf_x[p * ip + ci] =
-          (gy < H && gx < W && ci < cin) ? xin[((size_t)gy * W + gx) * cin + ci] : T(0.f);
+    regs_inc<kConsumerRegs>();
+    T* buf_a = reinterpret_cast<T*>(smem + L.a);
+    T* buf_x = reinterpret_cast<T*>(smem + L.x);
+    const int mp = pitch<T>(C), mcols = cin_pad<T>(C);
+    if (!fused_streams<T>(cin)) {
+      // input tile (th+4, tw+4, cin_pad) at pitch(cin); zeros past the image
+      // edge (they only feed outputs that are clipped away) and past cin
+      constexpr int V = Cfg<T>::kin;
+      const int tid = threadIdx.x - (kThreads - kConsumers);
+      const int iw = tw + 4, n_pix = (th + 4) * iw, ip = pitch<T>(cin), cp = cin_pad<T>(cin);
+      const T* xin = x + (size_t)img * H * W * cin;
+      if (cin % V == 0) {
+        const int nv = cp / V;
+        for (int idx = tid; idx < n_pix * nv; idx += kConsumers) {
+          const int p = idx / nv, v = idx - p * nv;
+          const int gy = gy0 + p / iw, gx = gx0 + p % iw;
+          const bool ok = gy < H && gx < W;
+          cp_async16(buf_x + p * ip + v * V, ok ? xin + ((size_t)gy * W + gx) * cin + v * V : xin,
+                     ok ? 16 : 0);
+        }
+        cp_async_wait_all();
+      } else {
+        for (int idx = tid; idx < n_pix * cp; idx += kConsumers) {
+          const int p = idx / cp, ci = idx - p * cp;
+          const int gy = gy0 + p / iw, gx = gx0 + p % iw;
+          buf_x[p * ip + ci] =
+              (gy < H && gx < W && ci < cin) ? xin[((size_t)gy * W + gx) * cin + ci] : T(0.f);
+        }
+      }
+      named_sync(1, kConsumers);
     }
+    int slot = 0;
+    uint32_t phase = 0;
+    consume<T>(fused_stage<T>(0, cin, C, th, tw), buf_x, r, slot, phase,
+               {buf_a, mp, mcols, b1, C, 0});
+    named_sync(1, kConsumers);
+    consume<T>(fused_stage<T>(1, cin, C, th, tw), buf_a, r, slot, phase,
+               {buf_x, mp, mcols, b2, C, 0});
+    named_sync(1, kConsumers);
+    consume<T>(fused_stage<T>(2, cin, C, th, tw), buf_x, r, slot, phase,
+               {buf_a, mp, mcols, b3, C, 0});
+    named_sync(1, kConsumers);
+    consume<T>(fused_stage<T>(3, cin, C, th, tw), buf_a, r, slot, phase,
+               {buf_x, mp, C, b4, C, 0});
+    named_sync(1, kConsumers);
+    store_tile<T>(buf_x, mp, out + (size_t)img * h_out * w_out * C, C, 0, C, gy0, gx0, th, tw,
+                  h_out, w_out);
   }
-  cp_async_commit();
-  cp_async_wait<0>();
-  // (the first stage's barrier orders these writes before use)
-  conv_stage<T, 3>(buf_x, iw, ip, cin, w1, b1, mh, mw, C, C, ring, ring_stride, buf_a, mp,
-                   nullptr, 0, 0, 0, 0);
-  conv_stage<T, 1>(buf_a, mw, mp, C, w2, b2, mh, mw, C, C, ring, ring_stride, buf_x, mp, nullptr,
-                   0, 0, 0, 0);
-  conv_stage<T, 1>(buf_x, mw, mp, C, w3, b3, mh, mw, C, C, ring, ring_stride, buf_a, mp, nullptr,
-                   0, 0, 0, 0);
-  conv_stage<T, 3>(buf_a, mw, mp, C, w4, b4, th, tw, C, C, ring, ring_stride, nullptr, 0,
-                   out + (size_t)img * h_out * w_out * C, gy0, gx0, h_out, w_out);
 }
 
 // One K x K stage of the staged route: (B, H, W, cin) -> (B, H-K+1, W-K+1, C)
-// in the compute type. Block (tile, channel block, image) computes a th x tw
-// output tile and NB output channels, its input streamed through the ring.
-template <typename T, int K, int SB>
+// in the compute type. Block (tile, n-block, image): a th x tw output tile
+// and 64 of its channels, the input streamed through the ring by TMA.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-conv_stage_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ b,
-                  T* __restrict__ out, int H, int W, int cin, int C, int th, int tw) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int NB = staged_nb<T>();
-  T* ring = reinterpret_cast<T*>(smem_raw);
-  const int ring_stride = (int)staged_ring_elems<T, K, SB>(th, tw);
+conv_stage_kernel(const __grid_constant__ CUtensorMap tmap, const unsigned char* __restrict__ w,
+                  const float* __restrict__ bias, T* __restrict__ out, int H, int W, int K,
+                  int cin, int C, int th, int tw) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L = staged_layout<T>(K, cin, th, tw);
+  const Ring r = init_ring(smem, L);
   const int h_out = H - K + 1, w_out = W - K + 1;
-  const int tiles_x = (w_out + tw - 1) / tw;
-  const int gy0 = (blockIdx.x / tiles_x) * th;
-  const int gx0 = (blockIdx.x % tiles_x) * tw;
-  const int n0 = blockIdx.y * NB, img = blockIdx.z;
-  const int ih = th + K - 1, iw = tw + K - 1;
-  const StreamSrc<T> ss = {x + (size_t)img * H * W * cin, H, W, gy0, gx0, ih, iw};
-  conv_stage<T, K, SB>(nullptr, iw, slice_pitch<T, SB>(), cin, w + n0, b + n0, th, tw,
-                       min(NB, C - n0), C, ring, ring_stride, nullptr, 0,
-                       out + (size_t)img * h_out * w_out * C + n0, gy0, gx0, h_out, w_out, ss);
+  const int tiles_x = cdiv(w_out, tw);
+  const int gy0 = (blockIdx.x / tiles_x) * th, gx0 = (blockIdx.x % tiles_x) * tw;
+  const int nb = blockIdx.y, img = blockIdx.z;
+
+  const Stage s = make_stage<T>(K, cin, th, tw, stream_sb<T>(K, cin), 1, 0, 0, cdiv(C, NB));
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (role == 0) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int slot = 0;
+      uint32_t phase = 0;
+      produce<T>(s, w + (size_t)nb * s.krows * wrow<T>(), r, slot, phase, &tmap, gx0, gy0, img);
+    }
+  } else {
+    regs_inc<kConsumerRegs>();
+    T* stage_out = reinterpret_cast<T*>(smem + L.a);
+    const int sp = pitch<T>(NB), n = min(NB, C - nb * NB);
+    int slot = 0;
+    uint32_t phase = 0;
+    consume<T>(s, nullptr, r, slot, phase, {stage_out, sp, n, bias, C, nb * NB});
+    named_sync(1, kConsumers);
+    store_tile<T>(stage_out, sp, out + (size_t)img * h_out * w_out * C, C, nb * NB, n, gy0, gx0,
+                  th, tw, h_out, w_out);
+  }
 }
 
 // Relative cost of a pass with th x tw tiles over an H x W input: blocks x
-// (rounds x K rows) summed over the four stages. A block's time is mostly
-// per weight chunk and round, so this orders the tiles that fit as the card
-// does (scripts/torch_kernel_check.py tiles).
+// the k steps of the busier consumer warpgroup, summed over stages and
+// rounds, each round charged one m64 tile more for its fill and epilogue.
 template <typename T>
 long long pass_cost(int cin, int C, int th, int tw, int H, int W) {
-  constexpr int WARPS = kThreads / 32, UM = 16 * Cfg<T>::mt, UN = 8 * Cfg<T>::nt;
-  const int kp = Cfg<T>::kpad;
-  const int n_n = (round16(C) + UN - 1) / UN;
-  auto rounds = [&](int P) { return ((P + UM - 1) / UM * n_n + WARPS - 1) / WARPS; };
-  const long long cinp = (cin + kp - 1) / kp * kp, Cp = (C + kp - 1) / kp * kp;
-  const long long rows = rounds((th + 2) * (tw + 2)) * (9 * cinp + 2 * Cp) +
-                         rounds(th * tw) * 9 * Cp;
-  const long long tiles = (long long)((H - 4 + th - 1) / th) * ((W - 4 + tw - 1) / tw);
-  return tiles * rows;
+  long long per_block = 0;
+  for (int i = 0; i < 4; ++i) {
+    const Stage s = fused_stage<T>(i, cin, C, th, tw);
+    const int n_mt = cdiv(s.oh * s.ow, 64), R = rounds_per_nb<T>(s);
+    const int per_wg = s.pair ? n_mt : cdiv(n_mt, 2 * R);
+    per_block += (long long)n_outer(s) * R * (per_wg + 1) * (s.krows / Cfg<T>::kstep);
+  }
+  return (long long)cdiv(H - 4, th) * cdiv(W - 4, tw) * per_block;
 }
 
-template <typename T>
-size_t smem_bytes(int cin, int C, int th, int tw) {
-  size_t a_elems, x_elems, w_elems;
-  buffer_elems<T>(cin, C, th, tw, &a_elems, &x_elems, &w_elems);
-  return (a_elems + x_elems + w_elems) * sizeof(T);
-}
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
+// the library does not link libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-template <typename T, int K, int SB>
-int launch_stage(const T* x, const T* w, const float* b, T* out, int B, int H, int W, int cin,
-                 int C, int th, int tw, cudaStream_t stream) {
-  const size_t smem = Cfg<T>::stages * staged_ring_elems<T, K, SB>(th, tw) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(conv_stage_kernel<T, K, SB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// error codes of the map's encoding and of the register pool, beside CUDA's
+constexpr int kNoEncoder = 9001, kEncodeFailed = 9002, kRegisterPool = 9003;
+
+// setmaxnreg.inc waits until the pool holds the registers it asks for: a
+// kernel launched with fewer than 168 registers a thread would wait forever.
+template <typename K>
+int check_register_pool(K kernel) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = ((H - K + 1 + th - 1) / th) * ((W - K + 1 + tw - 1) / tw);
-  dim3 grid(tiles, (C + staged_nb<T>() - 1) / staged_nb<T>(), B);
-  conv_stage_kernel<T, K, SB><<<grid, kThreads, smem, stream>>>(x, w, b, out, H, W, cin, C, th,
-                                                                tw);
-  return (int)cudaGetLastError();
+  const int need = kProducerRegs * (kThreads - kConsumers) + kConsumerRegs * kConsumers;
+  return a.numRegs * kThreads >= need ? 0 : kRegisterPool;
+}
+
+int encode_input_map(CUtensorMap* m, const void* x, int B, int H, int W, int cin, int sb, int bw,
+                     int bh, int esz) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return kNoEncoder;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)cin * esz, (cuuint64_t)W * cin * esz,
+                                 (cuuint64_t)H * W * cin * esz};
+  const cuuint32_t box[4] = {(cuuint32_t)sb, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(
+      m, esz == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+      const_cast<void*>(x), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : kEncodeFailed;
 }
 
 template <typename T>
-size_t staged_smem_bytes(int K, int cin, int th, int tw) {
-  constexpr int scb = Cfg<T>::scb;
-  const size_t elems = K == 3 ? staged_ring_elems<T, 3, scb>(th, tw)
-                       : staged_sb<T>(1, cin) == scb ? staged_ring_elems<T, 1, scb>(th, tw)
-                                                     : staged_ring_elems<T, 1, 4 * scb>(th, tw);
-  return Cfg<T>::stages * elems * sizeof(T);
+int launch_stage(const T* x, const void* w, const float* b, T* out, int B, int H, int W, int K,
+                 int cin, int C, int th, int tw, cudaStream_t stream) {
+  const Layout L = staged_layout<T>(K, cin, th, tw);
+  int rc = check_register_pool(conv_stage_kernel<T>);
+  if (rc) return rc;
+  CUtensorMap map;
+  rc = encode_input_map(&map, x, B, H, W, cin, stream_sb<T>(K, cin), tw + K - 1, th, Cfg<T>::esz);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(conv_stage_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(cdiv(H - K + 1, th) * cdiv(W - K + 1, tw), cdiv(C, NB), B);
+  conv_stage_kernel<T><<<grid, kThreads, L.total, stream>>>(
+      map, (const unsigned char*)w, b, out, H, W, K, cin, C, th, tw);
+  return (int)cudaGetLastError();
 }
 
 // The staged route: the pass's four stages, one launch each, x -> s0 -> s1
 // -> s0 -> out; s0 and s1 hold (B, H-2, W-2, C) in the compute type.
 template <typename T>
-int launch_staged(const void* x, const void* const* w, const float* const* b, void* out,
-                  void* s0, void* s1, int B, int H, int W, int cin, int C, int th, int tw,
+int launch_staged(const void* x, const void* const* w, const float* const* b, void* out, void* s0,
+                  void* s1, int B, int H, int W, int cin, int C, int th, int tw,
                   cudaStream_t stream) {
-  constexpr int scb = Cfg<T>::scb;
   T* t0 = (T*)s0;
   T* t1 = (T*)s1;
-  int rc = launch_stage<T, 3, scb>((const T*)x, (const T*)w[0], b[0], t0, B, H, W, cin, C, th,
-                                   tw, stream);
-  const T* src = t0;
-  for (int i = 1; i <= 2 && rc == 0; ++i) {
-    T* dst = i == 1 ? t1 : t0;
-    rc = staged_sb<T>(1, C) == scb
-             ? launch_stage<T, 1, scb>(src, (const T*)w[i], b[i], dst, B, H - 2, W - 2, C, C, th,
-                                       tw, stream)
-             : launch_stage<T, 1, 4 * scb>(src, (const T*)w[i], b[i], dst, B, H - 2, W - 2, C, C,
-                                           th, tw, stream);
-    src = dst;
-  }
+  int rc = launch_stage<T>((const T*)x, w[0], b[0], t0, B, H, W, 3, cin, C, th, tw, stream);
+  if (rc == 0) rc = launch_stage<T>(t0, w[1], b[1], t1, B, H - 2, W - 2, 1, C, C, th, tw, stream);
+  if (rc == 0) rc = launch_stage<T>(t1, w[2], b[2], t0, B, H - 2, W - 2, 1, C, C, th, tw, stream);
   if (rc == 0)
-    rc = launch_stage<T, 3, scb>(src, (const T*)w[3], b[3], (T*)out, B, H - 2, W - 2, C, C, th,
-                                 tw, stream);
+    rc = launch_stage<T>(t0, w[3], b[3], (T*)out, B, H - 2, W - 2, 3, C, C, th, tw, stream);
   return rc;
 }
 
 template <typename T>
-int launch(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
-           const void* w3, const float* b3, const void* w4, const float* b4, void* out, int B,
-           int H, int W, int cin, int C, int th, int tw, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(cin, C, th, tw);
+int launch(const void* x, const void* const* w, const float* const* b, void* out, int B, int H,
+           int W, int cin, int C, int th, int tw, cudaStream_t stream) {
+  const Layout L = fused_layout<T>(cin, C, th, tw);
+  const int pool = check_register_pool(conv_pass_kernel<T>);
+  if (pool) return pool;
+  CUtensorMap map;
+  memset(&map, 0, sizeof map);
+  if (fused_streams<T>(cin)) {
+    const int rc = encode_input_map(&map, x, B, H, W, cin, stream_sb<T>(3, cin), tw + 4, th + 2,
+                                    Cfg<T>::esz);
+    if (rc) return rc;
+  }
   cudaError_t err = cudaFuncSetAttribute(conv_pass_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = ((H - 4 + th - 1) / th) * ((W - 4 + tw - 1) / tw);
-  dim3 grid(tiles, B);
-  conv_pass_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)x, (const T*)w1, b1, (const T*)w2, b2, (const T*)w3, b3, (const T*)w4, b4,
-      (T*)out, H, W, cin, C, th, tw);
+  dim3 grid(cdiv(H - 4, th) * cdiv(W - 4, tw), B);
+  const unsigned char* const* wb = reinterpret_cast<const unsigned char* const*>(w);
+  conv_pass_kernel<T><<<grid, kThreads, L.total, stream>>>(
+      map, (const T*)x, wb[0], b[0], wb[1], b[1], wb[2], b[2], wb[3], b[3], (T*)out, H, W, cin, C,
+      th, tw);
   return (int)cudaGetLastError();
 }
 
@@ -702,11 +882,11 @@ int launch(const void* x, const void* w1, const float* b1, const void* w2, const
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for a th x tw output tile;
-// elem_bytes is 4 (float32) or 2 (bfloat16).
+// Bytes of dynamic shared memory one block of the fused route needs for a
+// th x tw output tile; elem_bytes is 4 (float32) or 2 (bfloat16).
 long long conv_pass_2d_smem_bytes(int cin, int C, int th, int tw, int elem_bytes) {
-  return (long long)(elem_bytes == 2 ? smem_bytes<__nv_bfloat16>(cin, C, th, tw)
-                                     : smem_bytes<float>(cin, C, th, tw));
+  return elem_bytes == 2 ? fused_layout<__nv_bfloat16>(cin, C, th, tw).total
+                         : fused_layout<float>(cin, C, th, tw).total;
 }
 
 // Relative cost of th x tw tiles for an H x W input (lower is faster); the
@@ -719,13 +899,15 @@ long long conv_pass_2d_cost(int cin, int C, int th, int tw, int H, int W, int el
 // Bytes of dynamic shared memory one block of the staged route needs for a
 // K x K stage (K = 1 or 3) with cin input channels and a th x tw output tile.
 long long conv_pass_2d_staged_smem_bytes(int K, int cin, int th, int tw, int elem_bytes) {
-  return (long long)(elem_bytes == 2 ? staged_smem_bytes<__nv_bfloat16>(K, cin, th, tw)
-                                     : staged_smem_bytes<float>(K, cin, th, tw));
+  return elem_bytes == 2 ? staged_layout<__nv_bfloat16>(K, cin, th, tw).total
+                         : staged_layout<float>(K, cin, th, tw).total;
 }
 
-// The staged route (one launch per stage); s0, s1: scratch of B x (H-2) x
-// (W-2) x C elements each. cin and C must be multiples of 16 (bf16) or 8
-// (f32). Returns the first CUDA error code (0 = ok).
+// The staged route (one launch per stage); w1..w4 packed by the wrapper for
+// this route; s0, s1: scratch of B x (H-2) x (W-2) x C elements each. cin and
+// C must be multiples of 16 (bf16) or 8 (f32). Returns the first error code
+// (0 = ok; CUDA's, 9001/9002 when the TMA map cannot be encoded, 9003 when
+// the kernel's register pool cannot serve setmaxnreg).
 int conv_pass_2d_staged_launch(const void* x, const void* w1, const void* b1, const void* w2,
                                const void* b2, const void* w3, const void* b3, const void* w4,
                                const void* b4, void* out, void* s0, void* s1, int B, int H,
@@ -739,19 +921,17 @@ int conv_pass_2d_staged_launch(const void* x, const void* w1, const void* b1, co
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the CUDA error code (0 = ok).
+// The fused route; w1..w4 packed by the wrapper for this route. dtype: 0 =
+// float32, 1 = bfloat16. Returns the error code (0 = ok).
 int conv_pass_2d_launch(const void* x, const void* w1, const void* b1, const void* w2,
                         const void* b2, const void* w3, const void* b3, const void* w4,
-                        const void* b4, void* out, int B, int H, int W, int cin, int C,
-                        int th, int tw, int dtype, void* stream) {
+                        const void* b4, void* out, int B, int H, int W, int cin, int C, int th,
+                        int tw, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(x, w1, (const float*)b1, w2, (const float*)b2, w3, (const float*)b3,
-                         w4, (const float*)b4, out, B, H, W, cin, C, th, tw, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w1, (const float*)b1, w2, (const float*)b2, w3,
-                                 (const float*)b3, w4, (const float*)b4, out, B, H, W, cin, C,
-                                 th, tw, s);
+  const void* w[4] = {w1, w2, w3, w4};
+  const float* b[4] = {(const float*)b1, (const float*)b2, (const float*)b3, (const float*)b4};
+  if (dtype == 0) return launch<float>(x, w, b, out, B, H, W, cin, C, th, tw, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, w, b, out, B, H, W, cin, C, th, tw, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,11 +9,14 @@ Phases, each failing the run (non-zero exit) if it fails:
    for ``sm_90a``, all at once, timed;
 3. K1, the fused conv pass: the kernel against its plain version at the
    three pass shapes of the full-width 2D model's tile batch, in float32
-   (TF32 off) and bfloat16, with the design each shape takes, its TFLOP/s
-   and its plain, cuDNN and bound times; then ``[K1-wide]``: the wrapper's
-   Python mirrors of the kernel's size and cost formulas against the
-   library's, and K1 at the passes of ``examples/real-data``'s 256-fmap
-   model (tile batch 16), whose bottom pass takes the staged route;
+   (TF32 off) and bfloat16, two launches bit-identical, with the design
+   each shape takes, its TFLOP/s and its plain, cuDNN and bound times; then
+   ``[K1-wide]``: the wrapper's Python mirrors of the kernel's size and cost
+   formulas against the library's, and K1 at the passes of
+   ``examples/real-data``'s 256-fmap model (tile batch 16), whose bottom
+   pass takes the staged route; then ``[K1-ragged]``: the same checks at
+   ragged and narrow shapes (partial edge tiles, 24 and 72 channels, three
+   input channels, B = 1);
 4. K2, the 3x3 filter gradient: the kernel against its plain version at the
    six dw shapes of the full-width train step, float32 and bfloat16, two
    launches bit-identical, with the plan each shape takes (tensor or CUDA
@@ -455,6 +458,8 @@ def _k1_shape(name, shape, c_out, dtype, gen, device, tag):
     params = _pass_params(shape[-1], c_out, gen, device)
     x = torch.rand(shape, generator=gen).to(device)
     got = conv_pass_2d(x, params, dtype)
+    if not torch.equal(got, conv_pass_2d(x, params, dtype)):
+        fail(f"conv_pass_2d {name} {dtype}: two launches differ")
     ref = conv_pass_2d_plain(x, params, dtype)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs()
@@ -481,7 +486,7 @@ def _k1_shape(name, shape, c_out, dtype, gen, device, tag):
     bound_ms = 1e3 * max(flops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S)
     print(f"[{tag}] {name:6s} {str(dtype):14s} {tuple(shape)}->{c_out}: "
           f"{conv_pass_2d_design(shape, c_out, dtype)}; "
-          f"max_abs_err {max_err:.3g} ({tol_text}); kernel {ms:.2f} ms "
+          f"max_abs_err {max_err:.3g} ({tol_text}), two launches bit-identical; kernel {ms:.2f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, "
           f"cuDNN {library_ms:.2f} ms, bound {bound_ms:.3f} ms")
     del x
@@ -516,6 +521,20 @@ def phase_conv_pass(device, model=MODEL, batch=TILE_BATCH * 2 * NUM_INFER_ITERAT
               f"{total['bound_ms']:.3f} ms ({total['bound_by']})", flush=True)
         out[dtype] = total
     return out
+
+
+# ragged and narrow K1 shapes: image sizes that leave partial tiles at the
+# right and bottom edge, the 24-fmap model's widths (24, 72) and three input
+# channels, B = 1
+K1_RAGGED = (((1, 37, 41, 3), 24), ((2, 29, 33, 24), 72), ((3, 45, 45, 96), 24))
+
+
+def phase_k1_ragged(device):
+    """K1 at the ragged shapes, both types, through the checks of ``[K1]``."""
+    gen = torch.Generator().manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (shape, c_out) in enumerate(K1_RAGGED):
+            _k1_shape(f"r{i}", shape, c_out, dtype, gen, device, "K1-ragged")
 
 
 def phase_k1_plans():
@@ -4000,6 +4019,8 @@ def main() -> None:
     clock("K1 plans")
     k1_wide = phase_conv_pass(device, MODEL_WIDE, K1_WIDE_BATCH, "K1-wide")
     clock("K1-wide")
+    phase_k1_ragged(device)
+    clock("K1-ragged")
     k2 = phase_conv_dw(device)
     clock("K2")
     k3 = phase_ball_stats(device)

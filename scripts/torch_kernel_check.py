@@ -5,14 +5,16 @@
     python3 scripts/torch_kernel_check.py k1       # or k2
     python3 scripts/torch_kernel_check.py fit      # K3 and the one-launch fit
     python3 scripts/torch_kernel_check.py tiles    # K1 at every tile that fits
+    python3 scripts/torch_kernel_check.py tiles-wide  # the same at the 256-fmap passes
     python3 scripts/torch_kernel_check.py wide     # K1 at the 256-fmap model's passes
     python3 scripts/torch_kernel_check.py greedy   # greedy clustering, card vs CPU
 
 ``k1`` and ``k2`` are ``chip_smoke.py``'s ``[K1]`` and ``[K2]`` phases (each
 kernel against its plain version at the full-width shapes, timed beside its
 plain version, cuDNN and its bound); ``fit`` is its ``[K3]`` and ``[K3-fit]``
-phases (without the main path's input). ``tiles`` launches K1 through its C
-entry point at every square tile that fits shared memory, with the cost its
+phases (without the main path's input). ``tiles`` launches K1's fused route through its
+C entry point at every square tile of 6 or more that fits shared memory
+(``tiles-wide``: at the 256-fmap model's passes), with the cost its
 tile choice assigns, to see how the tile size sets its speed; every tile must
 give the bits of the tile the wrapper picks. ``wide`` is ``[K1-wide]``:
 the plan mirrors against the library and K1 at the passes of
@@ -35,22 +37,25 @@ from cellulus_tpu_torch.ops import conv_pass as k1  # noqa: E402
 from cellulus_tpu_torch.utils import kernels  # noqa: E402
 
 
-def sweep_tiles(device):
+def sweep_tiles(device, model=smoke.MODEL, batch=smoke.TILE_BATCH * 2 * smoke.NUM_INFER_ITERATIONS):
     lib = kernels.load("conv_pass", k1._SIGNATURES)
     gen = torch.Generator().manual_seed(1)
     for dtype in (torch.float32, torch.bfloat16):
         code = k1._DTYPE_CODES[dtype]
-        for name, shape, c_out in smoke.pass_shapes(smoke.TILE_BATCH * 2 * smoke.NUM_INFER_ITERATIONS):
+        for name, shape, c_out in smoke.pass_shapes(batch, model):
+            if k1.conv_pass_2d_plan(shape, c_out, dtype)[0] != "fused":
+                continue
             params = smoke._pass_params(shape[-1], c_out, gen, device)
             x = torch.rand(shape, generator=gen).to(device).to(dtype).contiguous()
-            ws = [params[f"conv{i}"]["w"].to(dtype).contiguous() for i in range(4)]
-            bs = [params[f"conv{i}"]["b"].float().contiguous() for i in range(4)]
             B, H, W, c_in = shape
+            ws = k1.pack_pass([params[f"conv{i}"]["w"].to(dtype) for i in range(4)], "fused",
+                              c_in, c_out)
+            bs = [params[f"conv{i}"]["b"].float().contiguous() for i in range(4)]
             out = torch.empty((B, H - 4, W - 4, c_out), dtype=dtype, device=device)
             want = k1.conv_pass_2d(x, params, dtype)
             for tile in k1.TILE_CANDIDATES:
                 smem = lib.conv_pass_2d_smem_bytes(c_in, c_out, tile, tile, x.element_size())
-                if smem > k1.MAX_SHARED_BYTES or tile < 4:
+                if smem > k1.MAX_SHARED_BYTES or tile < 6:
                     continue
 
                 def run():
@@ -132,6 +137,8 @@ def main() -> None:
         smoke.phase_fit(device)
     if what == "tiles":
         sweep_tiles(device)
+    if what == "tiles-wide":
+        sweep_tiles(device, smoke.MODEL_WIDE, smoke.K1_WIDE_BATCH)
     if what == "wide":
         smoke.phase_k1_plans()
         smoke.phase_conv_pass(device, smoke.MODEL_WIDE, smoke.K1_WIDE_BATCH, "K1-wide")

@@ -101,18 +101,21 @@ def test_pass_rejects_what_the_kernel_does_not_take(small_params, bad):
 
 # The route and tile of every pass at the widths of the repo's 2D TOMLs
 # (computed from the source's size and cost formulas; chip_smoke.py holds
-# those mirrors against the library on the card). examples/2d keeps the
-# tiles it took before the staged route existed.
+# those mirrors against the library on the card). The wgmma design's ring
+# holds one 64-column n-block, so a fused tile fits at any width: the staged
+# route takes a pass where no fused tile of at least FUSED_MIN_TILE fits,
+# and a smaller fused tile is left for a pass the staged route cannot take
+# (the 256-fmap first pass in float32: cin = 1).
 _EXAMPLE_PLANS = {
     "2d": {
-        "down": {"float32": ("fused", 16), "bfloat16": ("fused", 14)},
+        "down": {"float32": ("fused", 16), "bfloat16": ("fused", 16)},
         "bottom": {"float32": ("fused", 8), "bfloat16": ("fused", 12)},
-        "up": {"float32": ("fused", 14), "bfloat16": ("fused", 14)},
+        "up": {"float32": ("fused", 14), "bfloat16": ("fused", 20)},
     },
     "real-data": {
-        "down": {"float32": ("fused", 6), "bfloat16": ("fused", 8)},
+        "down": {"float32": ("fused", 6), "bfloat16": ("fused", 10)},
         "bottom": {"float32": ("staged", 16), "bfloat16": ("staged", 16)},
-        "up": {"float32": ("fused", 14), "bfloat16": ("fused", 14)},
+        "up": {"float32": ("fused", 14), "bfloat16": ("fused", 20)},
     },
 }
 
@@ -125,7 +128,9 @@ def test_plan_of_every_pass_of_the_example_widths(toml):
     from cellulus_tpu_torch.configs import ExperimentConfig
     from cellulus_tpu_torch.models.geometry import conv_pass_inputs
     from cellulus_tpu_torch.ops.conv_pass import (
+        FUSED_MIN_TILE,
         MAX_SHARED_BYTES,
+        TILE_CANDIDATES,
         conv_pass_2d_plan,
         fused_smem_bytes,
         staged_smem_bytes,
@@ -144,19 +149,27 @@ def test_plan_of_every_pass_of_the_example_widths(toml):
             assert plan == expected[name][str(dtype)[6:]], (name, dtype)
             route, tile = plan
             elem = 2 if dtype == torch.bfloat16 else 4
+            kstep = 16 if elem == 2 else 8
+            big = [t for t in TILE_CANDIDATES if t >= FUSED_MIN_TILE]
             if route == "fused":
                 assert fused_smem_bytes(c_in, c_out, tile, tile, elem) <= MAX_SHARED_BYTES
-            else:  # staged only where no fused tile fits
-                assert fused_smem_bytes(c_in, c_out, 1, 1, elem) > MAX_SHARED_BYTES
+                if tile < FUSED_MIN_TILE:  # only where the staged route cannot take it
+                    assert c_in % kstep or c_out % kstep
+            else:  # staged only where no fused tile of FUSED_MIN_TILE or more fits
+                assert all(fused_smem_bytes(c_in, c_out, t, t, elem) > MAX_SHARED_BYTES
+                           for t in big)
                 assert max(staged_smem_bytes(k, ci, tile, tile, elem)
                            for k, ci in ((3, c_in), (1, c_out), (3, c_out))) <= MAX_SHARED_BYTES
 
 
 def test_a_pass_no_route_takes_raises():
     """Channels that neither fit a fused tile nor stream in the staged
-    route's slices raise; the pass is never handed to a library."""
+    route's slices raise; the pass is never handed to a library. With the
+    ring one or two 64-column n-blocks wide, a fused 1 x 1 tile fits up to
+    4,616 output channels (bf16, 256 inputs), so the threshold sits there."""
     from cellulus_tpu_torch.ops.conv_pass import conv_pass_2d_plan
 
     with pytest.raises(ValueError, match="fits no fused tile"):
-        conv_pass_2d_plan((1, 64, 64, 256), 776, torch.bfloat16)
-    assert conv_pass_2d_plan((1, 64, 64, 256), 784, torch.bfloat16) == ("staged", 16)
+        conv_pass_2d_plan((1, 64, 64, 256), 4632, torch.bfloat16)
+    assert conv_pass_2d_plan((1, 64, 64, 256), 4640, torch.bfloat16) == ("staged", 16)
+    assert conv_pass_2d_plan((1, 64, 64, 256), 4616, torch.bfloat16) == ("fused", 1)

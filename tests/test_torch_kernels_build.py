@@ -46,11 +46,12 @@ def test_an_edit_names_a_new_library(csrc, monkeypatch, edit):
 
 
 def test_the_shipped_kernels_share_the_tensor_core_header():
-    """conv_dw.cu and conv_pass.cu both include mma_tile.cuh, which is why
-    the hash covers the headers."""
-    for name in ("conv_dw", "conv_pass"):
-        assert '#include "mma_tile.cuh"' in (kernels.CSRC / f"{name}.cu").read_text()
-    assert (kernels.CSRC / "mma_tile.cuh").exists()
+    """The tensor-core kernels include headers of csrc/ (conv_dw.cu
+    mma_tile.cuh's mma.sync helpers, conv_pass.cu wgmma.cuh's wgmma, TMA
+    and mbarrier helpers), which is why the hash covers the headers."""
+    for name, header in (("conv_dw", "mma_tile.cuh"), ("conv_pass", "wgmma.cuh")):
+        assert f'#include "{header}"' in (kernels.CSRC / f"{name}.cu").read_text()
+        assert (kernels.CSRC / header).exists()
 
 
 def test_first_use_from_two_threads_builds_each_library_once(csrc, tmp_path, monkeypatch):
