@@ -119,12 +119,12 @@
 // 32, conv_stage_kernel<float> none. ptxas reports the wgmmas of the two
 // bf16 kernels serialised for register resources (C7512).
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "tensor_map.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -774,15 +774,8 @@ long long pass_cost(int cin, int C, int th, int tw, int H, int W) {
   return (long long)cdiv(H - 4, th) * cdiv(W - 4, tw) * per_block;
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
-// the library does not link libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// error codes of the map's encoding and of the register pool, beside CUDA's
-constexpr int kNoEncoder = 9001, kEncodeFailed = 9002, kRegisterPool = 9003;
+// error code of the register pool, beside CUDA's and the map's (tensor_map.cuh)
+constexpr int kRegisterPool = 9003;
 
 // setmaxnreg.inc waits until the pool holds the registers it asks for: a
 // kernel launched with fewer than 168 registers a thread would wait forever.
@@ -795,31 +788,6 @@ int check_register_pool(K kernel) {
   return a.numRegs * kThreads >= need ? 0 : kRegisterPool;
 }
 
-int encode_input_map(CUtensorMap* m, const void* x, int B, int H, int W, int cin, int sb, int bw,
-                     int bh, int esz) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess || fn == nullptr)
-      return kNoEncoder;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[4] = {(cuuint64_t)cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)cin * esz, (cuuint64_t)W * cin * esz,
-                                 (cuuint64_t)H * W * cin * esz};
-  const cuuint32_t box[4] = {(cuuint32_t)sb, (cuuint32_t)bw, (cuuint32_t)bh, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult rc = encode(
-      m, esz == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-      const_cast<void*>(x), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : kEncodeFailed;
-}
-
 template <typename T>
 int launch_stage(const T* x, const void* w, const float* b, T* out, int B, int H, int W, int K,
                  int cin, int C, int th, int tw, cudaStream_t stream) {
@@ -827,7 +795,7 @@ int launch_stage(const T* x, const void* w, const float* b, T* out, int B, int H
   int rc = check_register_pool(conv_stage_kernel<T>);
   if (rc) return rc;
   CUtensorMap map;
-  rc = encode_input_map(&map, x, B, H, W, cin, stream_sb<T>(K, cin), tw + K - 1, th, Cfg<T>::esz);
+  rc = tmap::encode_nhwc(&map, x, B, H, W, cin, stream_sb<T>(K, cin), tw + K - 1, th, Cfg<T>::esz);
   if (rc) return rc;
   cudaError_t err = cudaFuncSetAttribute(conv_stage_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
@@ -863,7 +831,7 @@ int launch(const void* x, const void* const* w, const float* const* b, void* out
   CUtensorMap map;
   memset(&map, 0, sizeof map);
   if (fused_streams<T>(cin)) {
-    const int rc = encode_input_map(&map, x, B, H, W, cin, stream_sb<T>(3, cin), tw + 4, th + 2,
+    const int rc = tmap::encode_nhwc(&map, x, B, H, W, cin, stream_sb<T>(3, cin), tw + 4, th + 2,
                                     Cfg<T>::esz);
     if (rc) return rc;
   }

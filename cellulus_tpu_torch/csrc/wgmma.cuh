@@ -1,16 +1,21 @@
-// Hopper (sm_90a) building blocks of K1 (conv_pass.cu), in inline PTX:
+// Hopper (sm_90a) building blocks of K1 (conv_pass.cu) and K2 (conv_dw.cu),
+// in inline PTX:
 //
-// - mbarriers: init, arrive, arrive with an expected transaction count,
-//   and a wait on a phase's parity;
+// - mbarriers: init, arrive, arrive with an expected transaction count, an
+//   expected transaction count alone, and a wait on a phase's parity;
 // - bulk copies global -> shared that complete on an mbarrier: a plain
 //   contiguous copy (cp.async.bulk) and a 4D TMA tile (cp.async.bulk.tensor,
 //   zeros where the box leaves the tensor);
 // - cp.async 16-byte copies (zero fill) for the one-off input tile;
-// - wgmma: fence, commit, wait, a shared-memory matrix descriptor, and the
-//   two products K1 issues, both with A from registers and B from shared
-//   memory by descriptor, f32 accumulators:
-//     m64n64k16 bf16, and m64n64k8 tf32 (f32 bit patterns, read as tf32 by
-//     dropping their low 13 bits);
+//   ldmatrix, plain and transposed; the async-proxy fence that orders
+//   generic shared-memory writes before wgmma reads them;
+// - wgmma: fence, commit, wait, shared-memory matrix descriptors (K-major
+//   without swizzle, and MN-major bf16 in 128-byte swizzled rows), and the
+//   products K1 and K2 issue, all
+//   with A from registers and B from shared memory by descriptor, f32
+//   accumulators: m64n64k16 bf16 (B K-major, or MN-major with the
+//   transpose bit), m64n64k8 and m64n32k8 tf32 (f32 bit patterns, read as
+//   tf32 by dropping their low 13 bits);
 // - setmaxnreg and named barriers for warp specialisation;
 // - the tf32 split of an f32 value for 3xTF32.
 //
@@ -27,7 +32,8 @@
 // B, K-major without swizzle: core matrices of 8 rows (n) x 16 bytes (k),
 // each 128 contiguous bytes; the leading byte offset (LBO) is the distance
 // between core matrices adjacent in k, the stride byte offset (SBO) between
-// core matrices adjacent in n.
+// core matrices adjacent in n. B, MN-major (bf16 only, read with
+// imm-trans-b = 1): see desc_mn_sw128.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,6 +61,11 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
+               : "memory");
+}
+// expect `bytes` more of transactions in the current phase, without arriving
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
 }
 __device__ __forceinline__ bool mbar_try_wait(uint32_t a, uint32_t parity) {
@@ -127,6 +138,21 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* row) {
                : "memory");
 }
 
+// The same, transposed: lane l receives rows 2 (l % 4) and 2 (l % 4) + 1 of
+// column l / 4 of each matrix.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+// order this thread's generic-proxy shared-memory writes before later
+// async-proxy reads (wgmma, bulk copies) of the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- warp specialisation -----------------------------------------------
 
 template <int N>
@@ -170,8 +196,19 @@ __device__ __forceinline__ uint64_t desc_kmajor(const void* p, uint32_t lbo, uin
   return d;  // base offset 0, layout type 0 (no swizzle)
 }
 
-// d (+)= a * b: m64n64k16, bf16 inputs, A from registers, B K-major by
-// descriptor; scale_d = 0 ignores d's contents
+// descriptor of a bf16 MN-major operand of 64 columns in 128-byte swizzled
+// rows at shared address p (1024-byte aligned): each k row holds the 64
+// columns in 128 bytes, its 16-byte units XORed with the row's index mod 8,
+// as TMA's SWIZZLE_128B writes a box with 128-byte rows; groups of 8 rows
+// `group` bytes apart. Both offsets get that stride: the other one, between
+// 64-column atoms, is never used at 64 columns.
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* p, uint32_t group) {
+  return desc_kmajor(p, group, group) | (1ull << 62);  // layout type 1: 128-byte swizzle
+}
+
+// d (+)= a * b: m64n64k16, bf16 inputs, A from registers, B by descriptor,
+// K-major (TRANS_B = 0) or MN-major (1); scale_d = 0 ignores d's contents
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
                                            int scale_d) {
   asm volatile(
@@ -179,13 +216,13 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
 }
 
 // d (+)= a * b: m64n64k8, tf32 inputs (f32 bit patterns), A from registers,
@@ -203,6 +240,21 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a * b: m64n32k8, tf32 inputs, A from registers, B K-major by
+// descriptor
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 

@@ -9,11 +9,17 @@ runs :func:`conv3x3_dw_plain`, nine float32 ``xs.T @ gs`` products, which
 is also what the kernel is held against on the card. Both take float32 or
 bfloat16 inputs as they are (no rounding of float32 inputs) and return
 float32.
+
+The plan functions below mirror the source's formulas (between its "K2
+plan begin" and "K2 plan end" markers): the route, the chunk, the shared
+memory and the pixel splits. The CPU tests hold them against a g++ build of
+those lines and emulate the kernel's data path with them.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -22,13 +28,112 @@ from ..utils import kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _SIGNATURES = {
-    "conv3x3_dw_plan": ([ctypes.c_int] * 2, ctypes.c_int),
-    "conv3x3_dw_splits": ([ctypes.c_int] * 5, ctypes.c_int),
+    "conv3x3_dw_plan": ([ctypes.c_int] * 3, ctypes.c_int),
+    "conv3x3_dw_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_longlong),
+    "conv3x3_dw_splits": ([ctypes.c_int] * 6, ctypes.c_int),
     "conv3x3_dw_launch": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
 }
+
+# Mirrors of csrc/conv_dw.cu's plan (kCi, kBarBytes, kAlign, kMaxStages,
+# kMaxSmem, Dw<2>, Dw<4>)
+CI_BLOCK = 64
+BAR_BYTES = 128
+ALIGN = 1024
+MAX_STAGES = 8
+MAX_SMEM = 232448
+
+
+@dataclass(frozen=True)
+class Chunking:
+    """Per element size: pixels per k step (ks), output channels of a block
+    (nb: 128 bytes of a pixel), chunk rows and pixels (ty, tx), and the taps
+    route's buffers of A rows (nbuf)."""
+
+    ks: int
+    nb: int
+    ty: int
+    tx: int
+    nbuf: int
+
+
+CHUNKING = {2: Chunking(16, 64, 16, 16, 4), 4: Chunking(8, 32, 8, 16, 3)}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def sw128(p, b):
+    """Byte ``b`` (0..127) of row ``p`` of a tile of 128-byte rows as TMA's
+    128-byte swizzle lays it out from a 1024-byte aligned base (numpy
+    arrays welcome)."""
+    return p * 128 + ((((b >> 4) ^ p) & 7) << 4) + (b & 15)
+
+
+def fold(c_in: int) -> bool:
+    """Route 2: (tap, ci) folded into one m64 tile of wgmma's M."""
+    return 9 * c_in <= 64
+
+
+def tma_ok(c: int, elem: int) -> bool:
+    """TMA boxes need 16-byte strides."""
+    return c * elem % 16 == 0
+
+
+def layout(elem: int, folded: bool) -> dict:
+    """Shared memory of a block of the route (``dw_layout``), from a
+    1024-byte aligned base: bytes of an x box (128-byte rows), the x area
+    (route 2: the dense tile of at most 7 channels), the g tile, a stage, an
+    f32 slab; the stages; the offsets of the slabs and of the barriers; the
+    total with the base's alignment."""
+    c = CHUNKING[elem]
+    xbox = _cdiv(128 * (c.ty + 2) * (c.tx + 2), 1024) * 1024
+    xbytes = (_cdiv((c.ty + 2) * (c.tx + 2) * 7 * elem, 1024) * 1024 if folded
+              else CI_BLOCK * elem // 128 * xbox)
+    gbytes = c.ty * c.tx * c.nb * elem
+    stage = xbytes + gbytes
+    slab = c.ty * c.tx * c.nb * 4 if elem == 4 else 0
+    stages = min(MAX_STAGES, (MAX_SMEM - ALIGN - BAR_BYTES - 4 * slab) // stage)
+    slabs = stages * stage
+    bars = slabs + 4 * slab
+    return dict(xbox=xbox, xbytes=xbytes, gbytes=gbytes, stage=stage, slab=slab, stages=stages,
+                slabs=slabs, bars=bars, total=bars + BAR_BYTES + ALIGN)
+
+
+def grid(B: int, H: int, W: int, c_in: int, c_out: int, elem: int) -> dict:
+    """The launch's tiles and chunks (``dw_grid``)."""
+    c = CHUNKING[elem]
+    f = fold(c_in)
+    chunks_y, chunks_x = _cdiv(H - 2, c.ty), _cdiv(W - 2, c.tx)
+    return dict(fold=f, n_ci_blocks=1 if f else _cdiv(c_in, CI_BLOCK),
+                n_co_blocks=_cdiv(c_out, c.nb), chunks_y=chunks_y, chunks_x=chunks_x,
+                n_chunks=B * chunks_y * chunks_x)
+
+
+def splits(B: int, H: int, W: int, c_in: int, c_out: int, elem: int, sms: int) -> int:
+    """Pixel splits (``dw_splits``): one wave over ``sms`` SMs, none empty."""
+    gr = grid(B, H, W, c_in, c_out, elem)
+    tiles = gr["n_ci_blocks"] * gr["n_co_blocks"]
+    s = max(1, min(sms // tiles, gr["n_chunks"]))
+    return _cdiv(gr["n_chunks"], _cdiv(gr["n_chunks"], s))
+
+
+def split_chunks(B: int, H: int, W: int, c_in: int, c_out: int, elem: int, n_splits: int):
+    """Each split's chunk range ``[begin, end)``, as the kernel reads it from
+    ``per_split = ceil(chunks / splits)``."""
+    n = grid(B, H, W, c_in, c_out, elem)["n_chunks"]
+    per = _cdiv(n, n_splits)
+    return [(s * per, min(n, (s + 1) * per)) for s in range(n_splits)]
+
+
+def chunk_origin(c: int, chunks_y: int, chunks_x: int, elem: int):
+    """Chunk c's image and output origin ``(b, y0, x0)`` (``dw_chunk``)."""
+    k = CHUNKING[elem]
+    b, rem = divmod(c, chunks_y * chunks_x)
+    return b, rem // chunks_x * k.ty, rem % chunks_x * k.tx
 
 
 def _check(x: torch.Tensor, g: torch.Tensor):
@@ -66,14 +171,44 @@ def conv3x3_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw
 
 
+def conv3x3_dw_plan(c_in: int, c_out: int, elem: int) -> int:
+    """The mirror of the source's ``conv3x3_dw_plan``: bit 0 route 2
+    (folded), bit 1 x by TMA, bit 2 g by TMA (for 16-byte aligned tensors)."""
+    f = fold(c_in)
+    return int(f) | int(not f and tma_ok(c_in, elem)) << 1 | int(tma_ok(c_out, elem)) << 2
+
+
 def conv3x3_dw_design(c_in: int, c_out: int, dtype: torch.dtype) -> str:
-    """The plan the kernel takes for these channel counts (chosen by shape
-    before launch, ``csrc/conv_dw.cu``): tensor cores or CUDA cores."""
-    if not kernels.load("conv_dw", _SIGNATURES).conv3x3_dw_plan(c_in, c_out):
-        return "CUDA cores (f32 FMA)"
-    if dtype == torch.bfloat16:
-        return "mma.sync m16n8k16 bf16"
-    return "mma.sync m16n8k8 3xTF32"
+    """The design the kernel takes for these channel counts (chosen by shape
+    before launch, ``csrc/conv_dw.cu``): the route, the wgmma and how each
+    tile arrives (TMA boxes, or element copies where TMA cannot stride)."""
+    elem = dtype.itemsize
+    plan = conv3x3_dw_plan(c_in, c_out, elem)
+    c = CHUNKING[elem]
+    mma = f"wgmma m64n{c.nb}k16 bf16" if elem == 2 else f"wgmma m64n{c.nb}k8 3xTF32"
+    route = "(tap, ci) folded into M" if plan & 1 else "taps: 64 ci x 3 taps a warpgroup"
+    feed = (f"x {'TMA' if plan & 2 else 'element copies'}, "
+            f"g {'TMA' if plan & 4 else 'element copies'}")
+    return f"{mma}, {route}; {feed}"
+
+
+# pixel splits by (device, shape, element size): counts only, no addresses
+_SPLITS: dict = {}
+
+
+def _launch(lib, x, g, out, B, H, W, Ci, Co) -> int:
+    """The kernel and its split reduction on the current device and stream;
+    the workspace from ``torch.empty``. Returns the CUDA error code."""
+    key = (x.device.index, B, H, W, Ci, Co, x.element_size())
+    n_splits = _SPLITS.get(key)
+    if n_splits is None:
+        n_splits = _SPLITS[key] = lib.conv3x3_dw_splits(B, H, W, Ci, Co, x.element_size())
+    ws = torch.empty((n_splits, 9 * Ci * Co), dtype=torch.float32, device=x.device)
+    return lib.conv3x3_dw_launch(
+        x.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        B, H, W, Ci, Co, n_splits, _DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
 
 
 def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -97,14 +232,11 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     lib = kernels.load("conv_dw", _SIGNATURES)
     x = x.contiguous()
     g = g.contiguous()
-    with torch.cuda.device(x.device):
-        splits = lib.conv3x3_dw_splits(B, H, W, Ci, Co)
-        ws = torch.empty((splits, 9 * Ci * Co), dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.conv3x3_dw_launch(
-            x.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            B, H, W, Ci, Co, splits, _DTYPE_CODES[x.dtype], stream,
-        )
+    if x.device.index == torch.cuda.current_device():
+        rc = _launch(lib, x, g, out, B, H, W, Ci, Co)
+    else:
+        with torch.cuda.device(x.device):
+            rc = _launch(lib, x, g, out, B, H, W, Ci, Co)
     kernels.check_launch(rc, "conv3x3_dw")
     kernels.count_launch(conv3x3_dw)
     return out

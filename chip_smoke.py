@@ -19,9 +19,13 @@ Phases, each failing the run (non-zero exit) if it fails:
    input channels, B = 1);
 4. K2, the 3x3 filter gradient: the kernel against its plain version at the
    six dw shapes of the full-width train step, float32 and bfloat16, two
-   launches bit-identical, with the plan each shape takes (tensor or CUDA
-   cores), its TFLOP/s and its plain, cuDNN (``conv2d_weight``) and bound
-   times;
+   launches bit-identical, with the design each shape takes (taps or
+   (tap, ci) folded into wgmma's M, TMA or element copies), its TFLOP/s and
+   its plain, cuDNN (``conv2d_weight``) and bound times; then
+   ``[K2-ragged]``: the same checks at the gate model's shapes (16 fmaps,
+   x2, 24 last, 4 x 76^2), the ``[sweep]`` and ``[mc]`` widths (24, 72,
+   three input channels), B = 1 and sizes that are no multiple of a chunk,
+   and channel counts TMA cannot stride;
 5. K3, the mean-shift ball statistics: the kernel against its plain version
    on random points and on points lying exactly on the ball boundary;
 6. K3-fit, the whole mean-shift fit in one launch: bit-identical over two
@@ -219,7 +223,7 @@ from cellulus_tpu_torch.infer import PIPELINED_STAGE, checkpoint_sweep
 from cellulus_tpu_torch.ops import mean_shift as msops
 from cellulus_tpu_torch.ops.ball_stats import ball_stats, ball_stats_plain, point_set
 from cellulus_tpu_torch.ops.conv_dw import conv3x3_dw, conv3x3_dw_design, conv3x3_dw_plain
-from cellulus_tpu_torch.ops import conv_pass
+from cellulus_tpu_torch.ops import conv_dw, conv_pass
 from cellulus_tpu_torch.ops.conv_pass import conv_pass_2d, conv_pass_2d_design, conv_pass_2d_plain
 from cellulus_tpu_torch.ops.mean_shift import mean_shift_fit_predict
 from cellulus_tpu_torch.ops.mean_shift_fit import (
@@ -444,11 +448,11 @@ def _library_pass(x, params, dtype):
     return y
 
 
-def pass_shapes(batch, model=MODEL, in_channels=1):
+def pass_shapes(batch, model=MODEL, in_channels=1, crop=CROP):
     """``(name, NHWC input shape, C_out)`` of every conv pass of a tile
     batch of ``batch`` images at ``model``'s width."""
     return [(name, (batch, *size, c_in), c_out) for name, size, c_in, c_out in conv_pass_inputs(
-        (CROP, CROP), model["downsampling_factors"], in_channels, model["num_fmaps"],
+        (crop, crop), model["downsampling_factors"], in_channels, model["num_fmaps"],
         model["fmap_inc_factor"], model["features_in_last_layer"])]
 
 
@@ -563,11 +567,11 @@ def phase_k1_plans():
           f"at {n} (pass, type, tile) cases of the 64- and 256-fmap models", flush=True)
 
 
-def dw_shapes(batch, in_channels=1):
+def dw_shapes(batch, in_channels=1, model=MODEL, crop=CROP):
     """``(name, x shape, g shape)`` of every 3x3 filter gradient of a train
     step: the first and last conv of each pass."""
     shapes = []
-    for name, (B, H, W, c_in), c in pass_shapes(batch, in_channels=in_channels):
+    for name, (B, H, W, c_in), c in pass_shapes(batch, model, in_channels, crop):
         shapes.append((f"{name} c0", (B, H, W, c_in), (B, H - 2, W - 2, c)))
         shapes.append((f"{name} c3", (B, H - 2, W - 2, c), (B, H - 4, W - 4, c)))
     return shapes
@@ -626,6 +630,54 @@ def phase_conv_dw(device):
         print(f"[K2] per train step, {dtype}: kernel {total['ms']:.3f} ms, plain "
               f"{total['plain_ms']:.3f} ms, cuDNN {total['library_ms']:.3f} ms, bound "
               f"{total['bound_ms']:.3f} ms ({total['bound_by']})")
+        out[dtype] = total
+    return out
+
+
+# ragged and narrow K2 shapes beside the gate model's: the [sweep] model's
+# widths (24, 72) and its first conv at three input channels, [mc]'s at 64,
+# B = 1 at sizes that are no multiple of a chunk, and channel counts TMA
+# cannot stride (12 bf16 inputs, 7 and 20 outputs)
+K2_RAGGED = (("sweep c0", (1, 37, 45, 3), (1, 35, 43, 24)),
+             ("sweep bottom", (1, 29, 33, 24), (1, 27, 31, 72)),
+             ("sweep up", (2, 27, 31, 96), (2, 25, 29, 24)),
+             ("mc c0", (1, 41, 39, 3), (1, 39, 37, 64)),
+             ("B1 odd", (1, 53, 47, 72), (1, 51, 45, 24)),
+             ("odd Co", (1, 15, 14, 3), (1, 13, 12, 7)),
+             ("odd Ci", (1, 11, 12, 12), (1, 9, 10, 20)))
+
+
+def phase_k2_ragged(device):
+    """K2's plan mirrors (``ops/conv_dw.py``) against the library's at every
+    ``[K2]`` and ``[K2-ragged]`` shape, then K2 through ``[K2]``'s checks at
+    the gate model's shapes (4 x 76^2) and at ``K2_RAGGED``, both types;
+    returns the sums per type."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    shapes = [(f"gate {n}", xs, gs) for n, xs, gs in dw_shapes(4, model=GATE_MODEL, crop=76)]
+    lib = kernels.load("conv_dw", conv_dw._SIGNATURES)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n = 0
+    for _, (B, H, W, c_in), gs in dw_shapes(TRAIN_BATCH) + shapes + list(K2_RAGGED):
+        for e in (2, 4):
+            c_out = gs[-1]
+            folded = conv_dw.fold(c_in)
+            got = (lib.conv3x3_dw_plan(c_in, c_out, e), lib.conv3x3_dw_smem_bytes(e, folded),
+                   lib.conv3x3_dw_splits(B, H, W, c_in, c_out, e))
+            want = (conv_dw.conv3x3_dw_plan(c_in, c_out, e), conv_dw.layout(e, folded)["total"],
+                    conv_dw.splits(B, H, W, c_in, c_out, e, sms))
+            if got != want:
+                fail(f"K2 plan mirrors differ from the library at x {(B, H, W, c_in)} -> {c_out}, "
+                     f"{e} B: library {got}, mirror {want}")
+            n += 1
+    print(f"[K2-ragged] the wrapper's mirrors of the plan, shared memory and splits equal the "
+          f"library's at {n} (shape, type) cases", flush=True)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        total = _summed([_k2_shape(name, xs, gs, dtype, gen, device, "K2-ragged")
+                         for name, xs, gs in shapes + list(K2_RAGGED)], dtype)
+        print(f"[K2-ragged] all {len(shapes) + len(K2_RAGGED)} shapes, {dtype}: kernel "
+              f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, cuDNN "
+              f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms", flush=True)
         out[dtype] = total
     return out
 
@@ -4023,6 +4075,8 @@ def main() -> None:
     clock("K1-ragged")
     k2 = phase_conv_dw(device)
     clock("K2")
+    k2_ragged = phase_k2_ragged(device)
+    clock("K2-ragged")
     k3 = phase_ball_stats(device)
     clock("K3")
     phase_fit(device)
@@ -4151,6 +4205,14 @@ def main() -> None:
                      "replaces": "cellulus_tpu/ops/pallas_dw.py:64",
                      "launches": sum(k2_paths[dtype].values()),
                      "launches_by_path": k2_paths[dtype], **k2[dtype]})
+        # [K2-ragged]: the gate model trains in float32 in [learn-grid]
+        ragged_paths = {"learn-grid (gate model)": k2_learn_grid} if dtype == torch.float32 else {}
+        rows.append({"name": "conv3x3_dw", "dtype": str(dtype).removeprefix("torch."),
+                     "input": "gate model at 4 x 76^2 and ragged shapes ([K2-ragged])",
+                     "route": "cuda", "source": "cellulus_tpu_torch/csrc/conv_dw.cu",
+                     "replaces": "cellulus_tpu/ops/pallas_dw.py:64",
+                     "launches": sum(ragged_paths.values()), "launches_by_path": ragged_paths,
+                     **k2_ragged[dtype]})
     rows.append({"name": "ball_stats", "route": "cuda",
                  "source": "cellulus_tpu_torch/csrc/ball_stats.cu",
                  "replaces": "cellulus_tpu/ops/pallas_mean_shift.py:39",

@@ -3,6 +3,7 @@
 
     python3 scripts/torch_kernel_check.py          # K1 and K2
     python3 scripts/torch_kernel_check.py k1       # or k2
+    python3 scripts/torch_kernel_check.py k2-ragged  # K2 at narrow and ragged shapes
     python3 scripts/torch_kernel_check.py fit      # K3 and the one-launch fit
     python3 scripts/torch_kernel_check.py tiles    # K1 at every tile that fits
     python3 scripts/torch_kernel_check.py tiles-wide  # the same at the 256-fmap passes
@@ -11,9 +12,11 @@
 
 ``k1`` and ``k2`` are ``chip_smoke.py``'s ``[K1]`` and ``[K2]`` phases (each
 kernel against its plain version at the full-width shapes, timed beside its
-plain version, cuDNN and its bound); ``fit`` is its ``[K3]`` and ``[K3-fit]``
-phases (without the main path's input). ``tiles`` launches K1's fused route through its
-C entry point at every square tile of 6 or more that fits shared memory
+plain version, cuDNN and its bound); ``k2-ragged`` is its ``[K2-ragged]``
+phase (the gate model's shapes, the sweep and 3-channel widths, B = 1, odd
+sizes and channel counts TMA cannot stride); ``fit`` is its ``[K3]`` and
+``[K3-fit]`` phases (without the main path's input). ``tiles`` launches
+K1's fused route through its C entry point at every square tile of 6 or more that fits shared memory
 (``tiles-wide``: at the 256-fmap model's passes), with the cost its
 tile choice assigns, to see how the tile size sets its speed; every tile must
 give the bits of the tile the wrapper picks. ``wide`` is ``[K1-wide]``:
@@ -132,6 +135,8 @@ def main() -> None:
         smoke.phase_conv_pass(device)
     if what in ("all", "k2"):
         smoke.phase_conv_dw(device)
+    if what in ("all", "k2-ragged"):
+        smoke.phase_k2_ragged(device)
     if what == "fit":
         smoke.phase_ball_stats(device)
         smoke.phase_fit(device)

@@ -46,10 +46,10 @@ def test_an_edit_names_a_new_library(csrc, monkeypatch, edit):
 
 
 def test_the_shipped_kernels_share_the_tensor_core_header():
-    """The tensor-core kernels include headers of csrc/ (conv_dw.cu
-    mma_tile.cuh's mma.sync helpers, conv_pass.cu wgmma.cuh's wgmma, TMA
-    and mbarrier helpers), which is why the hash covers the headers."""
-    for name, header in (("conv_dw", "mma_tile.cuh"), ("conv_pass", "wgmma.cuh")):
+    """The tensor-core kernels include headers of csrc/ (conv_dw.cu and
+    conv_pass.cu wgmma.cuh's wgmma, TMA and mbarrier helpers), which is why
+    the hash covers the headers."""
+    for name, header in (("conv_dw", "wgmma.cuh"), ("conv_pass", "wgmma.cuh")):
         assert f'#include "{header}"' in (kernels.CSRC / f"{name}.cu").read_text()
         assert (kernels.CSRC / header).exists()
 
