@@ -35,11 +35,11 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "mean_shift_fit_launch": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 6
         + [ctypes.c_void_p] * 5,
         ctypes.c_int,
     ),
-    "mean_shift_fit_plan": ([ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
+    "mean_shift_fit_plan": ([ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
 }
 
 

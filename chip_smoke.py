@@ -28,15 +28,18 @@ Phases, each failing the run (non-zero exit) if it fails:
    and channel counts TMA cannot stride;
 5. K3, the mean-shift ball statistics: the kernel against its plain version
    on random points and on points lying exactly on the ball boundary;
-6. K3-fit, the whole mean-shift fit in one launch: bit-identical over two
-   launches, over a fit of every other seed (the sums do not depend on the
-   seed groups) and to ``tests/mean_shift_fit_emu.py`` on four small
-   fixtures (d = 2, 3, 5, and points beyond shared memory);
-   one step against the plain version; labels against the plain version on
-   two clustered fixtures; timed against the one-iteration route
+6. K3-fit, the whole mean-shift fit in one launch: the launch plan's
+   Python mirror (``ops/mean_shift_fit.fit_plan``) against the library's at
+   every d and 17 point counts; bit-identical over two launches, over a fit
+   of every other seed (a seed's sums do not depend on the other seeds) and
+   to ``tests/mean_shift_fit_emu.py`` on seven fixtures (d = 2, 3, 5; each
+   cluster size the plan takes, 1, 2, 4 and 8 blocks; points beyond shared
+   memory); one step against the plain version; labels against the plain
+   version on two clustered fixtures; timed against the one-iteration route
    (``mean_shift_fit_plain`` over ``ball_stats``) and the plain version on a
    long fit (87,000 uniform points, 300 iterations at most) and on K3's
-   input run as a fit;
+   input run as a fit, each timed input with its plan, S, N, the ``n_iter``
+   maximum and sum, and the wrapper's host time a call;
 7. reference checks: the full-width U-Net on the card against the CPU
    (forward, and every gradient of the training path), mean-shift labels,
    and ``conv_pass_2d`` refusing to run under autograd;
@@ -227,6 +230,7 @@ from cellulus_tpu_torch.ops import conv_dw, conv_pass
 from cellulus_tpu_torch.ops.conv_pass import conv_pass_2d, conv_pass_2d_design, conv_pass_2d_plain
 from cellulus_tpu_torch.ops.mean_shift import mean_shift_fit_predict
 from cellulus_tpu_torch.ops.mean_shift_fit import (
+    fit_plan,
     mean_shift_fit,
     mean_shift_fit_plain,
     mean_shift_fit_plan,
@@ -754,14 +758,40 @@ def _fit_problem(X, seeds, bandwidth, device, valid=None):
             float(bw * bw), float(np.float32(1e-3) * bw))
 
 
-def _fit_step_check(name, seeds, points, bw2, stop):
-    """One fit step (max_iter = 1, then the recount) against the plain
-    version. A seed is left out when a point lies within rounding of its
-    ball at the start or at the end, or its shift within 1e-4 bw of the stop
-    threshold: there the two may decide differently, since they sum c.x and
-    the coordinates in other orders. The rest must agree: counts and frozen
-    exactly, centers within rtol 1e-5, atol 1e-4."""
-    got = mean_shift_fit(seeds, points, bw2, stop, 1)
+def long_fit_input(device):
+    """The long fit: LONG_FIT_POINTS uniform points in the image, bin seeds
+    at bw = 0.5 x OBJECT_SIZE: ``(seeds, points, bw2, stop)``."""
+    X = np.random.default_rng(9).uniform(0, IMAGE_SIZE, (LONG_FIT_POINTS, 2)).astype(np.float32)
+    bw = 0.5 * OBJECT_SIZE
+    return _fit_problem(X, msops.bin_seeds(X, bw), bw, device)
+
+
+def k3_fit_input(device):
+    """K3's input (K3_FIT_SHAPE uniform seeds and points, 5% invalid) as a
+    fit at bw = 0.5 x OBJECT_SIZE."""
+    rng = np.random.default_rng(2)
+    S, N = K3_FIT_SHAPE
+    c = rng.uniform(0, IMAGE_SIZE, (S, 2)).astype(np.float32)
+    X = rng.uniform(0, IMAGE_SIZE, (N, 2)).astype(np.float32)
+    return _fit_problem(X, c, 0.5 * OBJECT_SIZE, device, valid=rng.random(N) > 0.05)
+
+
+def long_fit_3d_input(bandwidth, device):
+    """The long 3D fit: LONG_FIT_POINTS_3D uniform points in a VOLUME_SIZE^3
+    volume at ``bandwidth`` (the 3D main path's), so bin seeds fill it."""
+    X = np.random.default_rng(14).uniform(0, VOLUME_SIZE, (LONG_FIT_POINTS_3D, 3))
+    X = X.astype(np.float32)
+    return _fit_problem(X, msops.bin_seeds(X, bandwidth), bandwidth, device)
+
+
+def _fit_step_check(name, seeds, points, bw2, stop, fit=mean_shift_fit):
+    """One fit step (max_iter = 1, then the recount) of ``fit`` against the
+    plain version. A seed is left out when a point lies within rounding of
+    its ball at the start or at the end, or its shift within 1e-4 bw of the
+    stop threshold: there the two may decide differently, since they sum c.x
+    and the coordinates in other orders. The rest must agree: counts and
+    frozen exactly, centers within rtol 1e-5, atol 1e-4."""
+    got = fit(seeds, points, bw2, stop, 1)
     ref = mean_shift_fit_plain(seeds, points, bw2, stop, 1)
     torch.cuda.synchronize()
     shift = (ref[0] - seeds).norm(dim=1)
@@ -829,19 +859,35 @@ def time_fit(name, seeds, points, bw2, stop, max_iter):
     route_ms = cuda_ms(lambda: mean_shift_fit_plain(seeds, points, bw2, stop, max_iter, ball_stats),
                        reps=2)
     plain_ms = cuda_ms(lambda: mean_shift_fit_plain(seeds, points, bw2, stop, max_iter), reps=2)
+    host_us = fit_host_us(seeds, points, bw2, stop, max_iter)
     bound_ms, bound_by = _fit_bound(S, N, d, n_iter, frozen, inball)
-    group, clusters, resident, smem = mean_shift_fit_plan(S, points.x.shape[0], d)
-    print(f"[K3-fit] {name}: S={S} N={N} d={d} max_iter={max_iter}; plan {clusters} clusters "
-          f"of 8 blocks, {group} seeds a group, {resident} points a block in shared memory "
-          f"({smem / 1024:.0f} KB); iterations max {int(n_iter.max())}, sum over seeds "
-          f"{int(n_iter.sum())}, frozen {int(frozen.sum())}/{S}; bit-identical over two "
+    plan, clusters = mean_shift_fit_plan(points.x.shape[0], d)
+    print(f"[K3-fit] {name}: S={S} N={N} d={d} max_iter={max_iter}; plan {dict(plan._asdict())}, "
+          f"{min(clusters, S)} clusters launched; iterations max {int(n_iter.max())}, sum over "
+          f"seeds {int(n_iter.sum())}, frozen {int(frozen.sum())}/{S}; bit-identical over two "
           f"launches; one step vs plain: max center err {max_err:.3g} (rtol 1e-5, atol 1e-4; "
-          f"{undecided} seeds at the boundary left out); kernel {ms:.3f} ms a fit, "
-          f"one-iteration route {route_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}), {len(calls) - 1} route iterations", flush=True)
+          f"{undecided} seeds at the boundary left out); kernel {ms:.3f} ms a fit "
+          f"({host_us:.1f} us of host time a call), one-iteration route {route_ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), {len(calls) - 1} "
+          f"route iterations", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "route_ms": route_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max_err,
-            "out": out}
+            "host_us": host_us, "S": S, "N": N, "n_iter_max": int(n_iter.max()),
+            "n_iter_sum": int(n_iter.sum()), "out": out}
+
+
+def fit_host_us(seeds, points, bw2, stop, max_iter, calls=20, fit=mean_shift_fit):
+    """The wrapper's host time a call: ``calls`` fits enqueued back to back
+    on the host clock, after the card has drained (a fit on the card takes
+    longer than its enqueue, so the queue never pushes back)."""
+    fit(seeds, points, bw2, stop, max_iter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fit(seeds, points, bw2, stop, max_iter)
+    host_us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return host_us
 
 
 def _same_partition(a, b):
@@ -852,16 +898,35 @@ def _same_partition(a, b):
     return len(pairs) == len(set(a.tolist())) == len(set(b.tolist()))
 
 
+# point counts at which the fit's plan mirror is held against the library's:
+# each cluster size's edges, the paths' inputs, shares beyond shared memory
+FIT_PLAN_N = (1, 100, 1024, 1025, 2048, 2049, 4096, 4097, 8192, 8193, 9854, 13594, 16384, 87000,
+              100000, 200000, 1000003)
+# the fit's fixtures against its emulation: (N, d, S, extent, bandwidth,
+# max_iter, share of valid points): one block of 128 threads, the plan's
+# cluster of 1, 2 (d = 3 and d = 5, 8-seed slots), 4 and 8 blocks (the main
+# input's size), and more points than the cluster's shared memory holds
+# (the rest read from L2)
+FIT_FIXTURES = ((700, 2, 40, 40, 4.0, 50, 1.0), (2048, 2, 64, 64, 4.0, 50, 1.0),
+                (3000, 3, 100, 30, 4.0, 30, 1.0), (3000, 5, 50, 30, 6.0, 20, 1.0),
+                (6000, 2, 120, 128, 5.0, 40, 0.95), (13000, 2, 200, 256, 8.0, 30, 1.0),
+                (200000, 2, 40, 512, 20.0, 5, 0.9))
+
+
 def phase_fit(device):
     """K3-fit: the whole mean-shift fit in one launch."""
+    for d in range(1, 9):
+        for N in FIT_PLAN_N:
+            plan, _ = mean_shift_fit_plan(N, d)
+            if plan != fit_plan(N, d):
+                fail(f"the fit's plan mirror {fit_plan(N, d)} differs from the library's {plan} "
+                     f"at N={N} d={d}")
+    print(f"[K3-fit] the plan mirror (ops/mean_shift_fit.fit_plan) equals the library's at "
+          f"{8 * len(FIT_PLAN_N)} (N, d) cases", flush=True)
     emu = _load_fit_emulation()
     rng = np.random.default_rng(8)
-    # (N, d, S, extent, bandwidth, max_iter, share of valid points): the
-    # small fixture, then d = 3 and d = 5 (8-seed groups), then more points
-    # than the cluster's shared memory holds (the rest read from L2)
-    for N, d, S, extent, bw, max_iter, p_valid in (
-            (2048, 2, 64, 64, 4.0, 50, 1.0), (3000, 3, 100, 30, 4.0, 30, 1.0),
-            (3000, 5, 50, 30, 6.0, 20, 1.0), (200000, 2, 40, 512, 20.0, 5, 0.9)):
+    clusters_seen = set()
+    for N, d, S, extent, bw, max_iter, p_valid in FIT_FIXTURES:
         X = rng.uniform(0, extent, (N, d)).astype(np.float32)
         valid = rng.random(N) < p_valid
         seeds, points, bw2, stop = _fit_problem(X, X[rng.choice(N, S, replace=False)], bw, device,
@@ -871,9 +936,14 @@ def phase_fit(device):
                        max_iter)
         if not all(np.array_equal(g, w) for g, w in zip(got, want)):
             fail(f"mean_shift_fit differs from tests/mean_shift_fit_emu.py at N={N} d={d}")
+        plan, clusters = mean_shift_fit_plan(N, d)
+        clusters_seen.add(plan.cluster)
         print(f"[K3-fit] S={S} N={N} d={d} max_iter={max_iter}, {valid.mean():.0%} valid: "
               f"bit-identical to the emulation (iterations max {got[3].max()}, frozen "
-              f"{int(got[2].sum())}/{S}; plan {mean_shift_fit_plan(S, N, d)})", flush=True)
+              f"{int(got[2].sum())}/{S}; plan {dict(plan._asdict())}, {min(clusters, S)} "
+              f"clusters)", flush=True)
+    if clusters_seen != {1, 2, 4, 8}:
+        fail(f"the fit's fixtures took cluster sizes {sorted(clusters_seen)}, not 1, 2, 4 and 8")
 
     # labels against the plain version: three clusters (2D), forty (3D)
     rng = np.random.default_rng(1)
@@ -895,10 +965,7 @@ def phase_fit(device):
               f"({len(set(gpu.tolist()) - {-1})} clusters, ids equal: {np.array_equal(gpu, cpu)})")
 
     # a long fit: uniform points at the reference's trained 2D fit scale
-    rng = np.random.default_rng(9)
-    X = rng.uniform(0, IMAGE_SIZE, (LONG_FIT_POINTS, 2)).astype(np.float32)
-    bw = 0.5 * OBJECT_SIZE
-    seeds, points, bw2, stop = _fit_problem(X, msops.bin_seeds(X, bw), bw, device)
+    seeds, points, bw2, stop = long_fit_input(device)
     long_fit = time_fit("long fit", seeds, points, bw2, stop, 300)
     half = mean_shift_fit(seeds[::2].contiguous(), points, bw2, stop, 300)
     if not all(torch.equal(h, f[::2]) for h, f in zip(half, long_fit["out"])):
@@ -906,11 +973,7 @@ def phase_fit(device):
     print("[K3-fit] long fit: every other seed fitted alone is bit-identical to the full fit")
 
     # K3's input, run as a fit
-    rng = np.random.default_rng(2)
-    S, N = K3_FIT_SHAPE
-    c = rng.uniform(0, IMAGE_SIZE, (S, 2)).astype(np.float32)
-    X = rng.uniform(0, IMAGE_SIZE, (N, 2)).astype(np.float32)
-    seeds, points, bw2, stop = _fit_problem(X, c, bw, device, valid=rng.random(N) > 0.05)
+    seeds, points, bw2, stop = k3_fit_input(device)
     k3_fit = time_fit("K3 input", seeds, points, bw2, stop, 300)
     half = mean_shift_fit(seeds[1::2].contiguous(), points, bw2, stop, 300)
     if not all(torch.equal(h, f[1::2]) for h, f in zip(half, k3_fit["out"])):
@@ -3530,12 +3593,12 @@ def phase_detect_3d(container, ic, device):
     sample 0's fit input (``[K3-fit]``)."""
     median, _, X, X_fit, seeds_np, kept, problem = _detect_in_parts(container, ic, 3, device, 3)
     seeds, points, _, _ = problem
-    plan = mean_shift_fit_plan(seeds.shape[0], points.x.shape[0], 3)
+    plan, clusters = mean_shift_fit_plan(points.x.shape[0], 3)
     print(f"[3d-detect] sample 0 in parts, median of 3 (ms): "
           f"{json.dumps({k: round(v, 3) for k, v in median.items()})}, sum "
           f"{sum(median.values()):.2f} ms; {len(X)} foreground voxels, N = {len(X_fit)} fitted, "
-          f"S = {len(seeds_np)} bin seeds, {len(kept)} clusters; fit plan (seeds a group, "
-          f"clusters, resident points a block, shared bytes) {plan}", flush=True)
+          f"S = {len(seeds_np)} bin seeds, {len(kept)} clusters; fit plan "
+          f"{dict(plan._asdict())}, {min(clusters, len(seeds_np))} clusters launched", flush=True)
 
     rng = np.random.default_rng(13)
     Xc = np.concatenate([rng.normal(c, 0.8, size=(200, 3)) for c in
@@ -3550,12 +3613,9 @@ def phase_detect_3d(container, ic, device):
     print(f"[K3-fit] 3D, few clusters: labels equal the plain version's as a partition "
           f"({len(set(gpu.tolist()) - {-1})} clusters, ids equal: {np.array_equal(gpu, cpu)})")
 
-    # a long 3D fit: LONG_FIT_POINTS_3D uniform points in a VOLUME_SIZE^3
-    # volume at bw = 0.5 x OBJECT_SIZE_3D, so bin seeds fill the volume
-    X = np.random.default_rng(14).uniform(0, VOLUME_SIZE, (LONG_FIT_POINTS_3D, 3))
-    X = X.astype(np.float32)
-    time_fit("3D long fit", *_fit_problem(X, msops.bin_seeds(X, ic.bandwidth), ic.bandwidth,
-                                          device), ic.mean_shift_max_iterations)
+    # a long 3D fit at the 3D main path's bandwidth, bin seeds filling the volume
+    time_fit("3D long fit", *long_fit_3d_input(ic.bandwidth, device),
+             ic.mean_shift_max_iterations)
     return time_fit("3D main input (sample 0), d = 3", *problem, ic.mean_shift_max_iterations)
 
 

@@ -5,22 +5,27 @@ it (no fused multiply-add).
 
 - The distance ``(|c|^2 + |x|^2) - 2 c.x``, ``|c|^2`` and ``c.x`` summed in
   index order; an invalid point's ``|x|^2`` is +inf, so no ball holds it.
-- Block ``r`` of a cluster of ``cluster`` blocks owns the points
-  ``[r * share, (r + 1) * share)``, ``share = ceil(N / cluster)``; its thread
-  ``t`` adds the points of local index ``t + j * threads`` in increasing ``j``.
-- Each warp reduces by butterfly (``v += v[lane ^ m]``, m = 16 .. 1), the
-  block sums its warps in index order, the cluster sums its blocks in rank
-  order.
+- The cluster size and threads per block are the launch plan's for ``(N,
+  d)`` (``cellulus_tpu_torch.ops.mean_shift_fit.fit_plan``). Block ``r`` of a
+  cluster of ``cluster`` blocks owns the points ``[r * share, (r + 1) *
+  share)``, ``share = fit_share(N, cluster)``; its thread ``t`` adds the
+  points of local index ``t + j * threads`` in increasing ``j``.
+- Each warp reduces by the butterfly's tree (``v += v[lane ^ m]``, m = 16 ..
+  1), the block sums its warps in index order, the cluster sums its blocks
+  in rank order.
 - The step of ``cellulus_tpu/ops/mean_shift.py:_make_step``, the shift as
   the root of the squared differences summed in index order.
 
-:func:`fit` runs either one global loop over all seeds (every seed's ball
-statistics every iteration, as the JAX package's ``while_loop`` does) or
-groups of seeds that each stop when their own seeds have halted and compute
-only live seeds, as the kernel does.
+:func:`fit` runs one global loop over all seeds (every seed's ball
+statistics every iteration, as the JAX package's ``while_loop`` does), or
+groups of seeds that each stop when their own seeds have halted, or seed
+slots that take the next seed of a claim order as soon as theirs has
+finished, each seed counting its own iterations, as the kernel does.
 """
 
 import numpy as np
+
+from cellulus_tpu_torch.ops.mean_shift_fit import fit_plan, fit_share
 
 F32 = np.float32
 
@@ -30,7 +35,7 @@ def _points(x, x_norm, valid, cluster, threads):
     ``xn`` (+inf where invalid or padding)."""
     x = np.asarray(x, F32)
     N, d = x.shape
-    share = -(-N // cluster)
+    share = fit_share(N, cluster)
     nj = max(1, -(-share // threads))
     xs = np.zeros((cluster, nj * threads, d), F32)
     xn = np.full((cluster, nj * threads), np.inf, F32)
@@ -82,14 +87,22 @@ def _ball_stats(centers, pts, bw2, chunk=256):
     return counts, sums
 
 
-def ball_stats(centers, x, x_norm, valid, bw2, cluster=8, threads=256):
+def _launch_shape(N, d, cluster, threads):
+    plan = fit_plan(N, d)
+    return (plan.cluster if cluster is None else cluster,
+            plan.threads if threads is None else threads)
+
+
+def ball_stats(centers, x, x_norm, valid, bw2, cluster=None, threads=None):
     """``(counts (S,), sums (S, d))`` as one pass of the fit kernel sums them."""
+    cluster, threads = _launch_shape(*np.shape(x), cluster, threads)
     pts = _points(x, x_norm, valid, cluster, threads)
     return _ball_stats(np.asarray(centers, F32), pts, bw2)
 
 
 def _step(c, prev, halted, counts, sums, it, stop, max_iter):
-    """``_make_step``: ``(new centers, newly done, cycle)``."""
+    """``_make_step`` at iteration ``it`` (a scalar, or one per seed):
+    ``(new centers, newly done, cycle)``."""
     means = sums / np.maximum(counts, F32(1))[:, None]
     empty = counts == 0
     diff = means - c
@@ -99,20 +112,65 @@ def _step(c, prev, halted, counts, sums, it, stop, max_iter):
     done = empty | (np.sqrt(sq) < F32(stop))
     new = np.where((halted | empty)[:, None], c, means)
     cycle = (new == prev).all(axis=1) & ~halted & ~done
-    if (max_iter - (it + 1)) % 2 != 0:
-        new = np.where(cycle[:, None], c, new)
+    odd = (max_iter - (np.asarray(it) + 1)) % 2 != 0
+    new = np.where((cycle & odd)[:, None], c, new)
     return new, done, cycle
 
 
-def fit(seeds, x, x_norm, valid, bw2, stop, max_iter, group=None, cluster=8, threads=256):
+def _refill(seeds, pts, bw2, stop, max_iter, slots, order):
+    """Seed slots: each slot holds a seed until it has frozen or has been
+    recounted (halted unfrozen by a cycle or by its own ``max_iter``
+    iterations), then takes the next seed of ``order``; a pass computes the
+    ball statistics of every held seed, as the kernel's clusters do."""
+    S = len(seeds)
+    c = seeds.copy()
+    prev = np.full_like(c, np.inf)
+    n_final = np.zeros((S,), F32)
+    frozen = np.zeros((S,), bool)
+    n_iter = np.zeros((S,), np.int32)
+    recount = np.zeros((S,), bool)
+    queue = list(range(S) if order is None else order)
+    assert sorted(queue) == list(range(S))
+    held = [-1] * slots
+    while True:
+        for m in range(slots):
+            if held[m] < 0 and queue:
+                held[m] = queue.pop(0)
+                recount[held[m]] = max_iter <= 0
+        run = np.array([s for s in held if s >= 0], np.int64)
+        if not len(run):
+            return c, n_final, frozen, n_iter
+        counts, sums = _ball_stats(c[run], pts, bw2)
+        again = recount[run]
+        n_final[run[again]] = counts[again]
+        live = run[~again]
+        new, done, cycle = _step(c[live], prev[live], np.zeros(len(live), bool), counts[~again],
+                                 sums[~again], n_iter[live], stop, max_iter)
+        n_final[live] = counts[~again]
+        n_iter[live] += 1
+        frozen[live] = done
+        prev[live], c[live] = c[live], new
+        recount[live] = ~done & (cycle | (n_iter[live] >= max_iter))
+        finished = set(run[again].tolist()) | set(live[done].tolist())
+        held = [-1 if s in finished else s for s in held]
+
+
+def fit(seeds, x, x_norm, valid, bw2, stop, max_iter, group=None, slots=None, order=None,
+        cluster=None, threads=None):
     """``(centers, n_final, frozen, n_iter)`` of the fit and recount.
 
-    ``group=None``: one global loop, every seed computed every iteration.
+    Default: one global loop, every seed computed every iteration.
     ``group=G``: seeds in groups of G, each group looping until its own
     seeds have halted and computing only its live seeds.
+    ``slots=M``: M seed slots refilled from ``order`` (a permutation of the
+    seeds; default in index order) as their seeds finish.
+    ``cluster`` and ``threads`` default to the launch plan's for ``(N, d)``.
     """
+    cluster, threads = _launch_shape(*np.shape(x), cluster, threads)
     pts = _points(x, x_norm, valid, cluster, threads)
     seeds = np.asarray(seeds, F32)
+    if slots is not None:
+        return _refill(seeds, pts, bw2, stop, max_iter, slots, order)
     S = len(seeds)
     c = seeds.copy()
     prev = np.full_like(c, np.inf)

@@ -10,7 +10,12 @@ the fit loop of the previous port (a Python loop with a recount after it).
 """
 
 import functools
+import inspect
+import os
 import re
+import shutil
+import subprocess
+import tempfile
 
 import numpy as np
 import pytest
@@ -20,12 +25,8 @@ import mean_shift_fit_emu as emu
 from cellulus_tpu.ops.mean_shift import mean_shift_fit_predict as jax_fit_predict
 from cellulus_tpu_torch.ops import mean_shift as ms
 from cellulus_tpu_torch.ops.ball_stats import PointSet, ball_stats_plain, point_set
-from cellulus_tpu_torch.ops.mean_shift_fit import (
-    FIT_CLUSTER,
-    FIT_THREADS,
-    mean_shift_fit,
-    mean_shift_fit_plain,
-)
+from cellulus_tpu_torch.ops import mean_shift_fit as msf
+from cellulus_tpu_torch.ops.mean_shift_fit import mean_shift_fit, mean_shift_fit_plain
 from cellulus_tpu_torch.utils import kernels
 
 
@@ -78,15 +79,53 @@ def _global_fit(name):
     return emu.fit(seeds, X, x_norm, np.ones(len(X), bool), bw2, stop, max_iter)
 
 
-@pytest.mark.parametrize("group", [16, 5])
+# (slots, claim order shuffled): seed slots refilled as their seeds finish
+REFILLS = [pytest.param(("slots", 16, False), id="slots16"),
+           pytest.param(("slots", 16, True), id="slots16-shuffled"),
+           pytest.param(("slots", 5, True), id="slots5-shuffled"),
+           pytest.param(("slots", 3, False), id="slots3")]
+
+
+@pytest.mark.parametrize("group", [16, 5] + REFILLS)
 @pytest.mark.parametrize("name", list(FIXTURES))
 def test_seed_groups_with_early_exit_equal_the_global_loop(name, group):
     """A group that leaves its loop once its own seeds have halted, and
-    computes only live seeds, gives every bit of the global loop."""
+    computes only live seeds, gives every bit of the global loop; so do seed
+    slots that take the next seed of any claim order as theirs finish, each
+    seed counting its own iterations (the kernel's order)."""
     X, seeds, x_norm, bw2, stop, max_iter = _problem(name)
-    grouped = emu.fit(seeds, X, x_norm, np.ones(len(X), bool), bw2, stop, max_iter, group=group)
-    for got, want in zip(grouped, _global_fit(name)):
-        np.testing.assert_array_equal(got, want)
+    valid = np.ones(len(X), bool)
+    if isinstance(group, tuple):
+        _, slots, shuffled = group
+        order = np.random.default_rng(len(seeds)).permutation(len(seeds)) if shuffled else None
+        got = emu.fit(seeds, X, x_norm, valid, bw2, stop, max_iter, slots=slots, order=order)
+    else:
+        got = emu.fit(seeds, X, x_norm, valid, bw2, stop, max_iter, group=group)
+    for g, want in zip(got, _global_fit(name)):
+        np.testing.assert_array_equal(g, want)
+
+
+def test_refill_with_a_cycle_and_max_iter_zero():
+    """Seeds that enter late keep their own iteration count: a period-2
+    cycle's phase and the recount follow it. With a stop threshold of 0 no
+    seed freezes, every seed halts on a cycle (a fixed point is one), and
+    some end on a different phase at max_iter 20 and 21; at max_iter = 0
+    every seed is recounted where it starts."""
+    X, seeds, x_norm, bw2, stop, _ = _problem("uniform_2d")
+    valid = np.ones(len(X), bool)
+    order = np.random.default_rng(2).permutation(len(seeds))
+    ends = {}
+    for stop_thresh, max_iter in ((stop, 0), (0.0, 20), (0.0, 21)):
+        want = emu.fit(seeds, X, x_norm, valid, bw2, stop_thresh, max_iter)
+        got = emu.fit(seeds, X, x_norm, valid, bw2, stop_thresh, max_iter, slots=4, order=order)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        ends[max_iter] = want
+    assert (ends[0][3] == 0).all() and not ends[0][2].any()
+    np.testing.assert_array_equal(ends[0][0], seeds)
+    cycled = ~ends[20][2] & (ends[20][3] < 20)
+    assert cycled.sum() > len(seeds) // 2
+    assert (ends[20][0] != ends[21][0]).any()
 
 
 def test_the_fixtures_reach_every_exit():
@@ -278,11 +317,92 @@ def test_fit_predict_fits_once_per_problem(monkeypatch):
 
 
 def test_emulation_mirrors_the_kernel_launch_shape():
-    """The emulation's defaults and the wrapper's constants are the
-    kernel's compiled cluster size and threads per block."""
+    """The wrapper's plan constants are the source's, and the emulation
+    takes its cluster size and threads per block from the plan's mirror."""
     src = (kernels.CSRC / "ball_stats.cu").read_text()
-    assert int(re.search(r"kCluster = (\d+);", src).group(1)) == FIT_CLUSTER
-    assert int(re.search(r"kFitThreads = (\d+);", src).group(1)) == FIT_THREADS
-    assert emu.fit.__defaults__[-2:] == (FIT_CLUSTER, FIT_THREADS)
+    for name, value in (("kFitThreads", msf.FIT_THREADS), ("kMaxCluster", msf.FIT_MAX_CLUSTER),
+                        ("kPointsPerThread", msf.FIT_POINTS_PER_THREAD)):
+        assert int(re.search(rf"{name} = (\d+);", src).group(1)) == value
+    assert eval(re.search(r"kPointBytes = ([\d *]+);", src).group(1)) == msf.FIT_POINT_BYTES
+    for N, d in ((100, 2), (2048, 2), (13594, 2), (9854, 3), (100000, 3), (3000, 5)):
+        plan = msf.fit_plan(N, d)
+        assert emu._launch_shape(N, d, None, None) == (plan.cluster, plan.threads)
     for fn in ("mean_shift_fit_launch", "mean_shift_fit_plan", "ball_stats_launch"):
         assert re.search(rf"\bint {fn}\(", src)
+
+
+# --- the launch plan ---------------------------------------------------------
+
+_PLAN_MAIN = r"""
+#include <cstdio>
+int main() {
+  int N, d;
+  while (std::scanf("%d %d", &N, &d) == 2) {
+    FitPlan p = fit_plan_for(N, d);
+    std::printf("%d %d %d %d %d %d\n", p.cluster, p.threads, p.slots, p.share, p.resident, p.smem);
+  }
+}
+"""
+
+# every point count the paths reach, the edges of each cluster size, and
+# large ones whose share outgrows shared memory
+PLAN_N = sorted({0, 1, 3, 4, 5, 100, 1023, 1024, 1025, 2047, 2048, 2049, 4096, 4097, 8192, 8193,
+                 9854, 13594, 13683, 16384, 87000, 100000, 200000, 1_000_003})
+
+
+@functools.lru_cache(maxsize=None)
+def _source_plans():
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the source's plan formulas")
+    src = (kernels.CSRC / "ball_stats.cu").read_text()
+    body = re.search(r"// ---- K3 plan begin.*?\n(.*)// ---- K3 plan end", src, re.S).group(1)
+    work = tempfile.mkdtemp(prefix="k3plan")
+    cpp, exe = os.path.join(work, "plan.cpp"), os.path.join(work, "plan")
+    with open(cpp, "w") as f:
+        f.write(body + _PLAN_MAIN)
+    subprocess.run([gxx, "-std=c++17", "-O1", "-o", exe, cpp], check=True, capture_output=True)
+    cases = [(N, d) for d in range(1, 9) for N in PLAN_N]
+    out = subprocess.run([exe], input="\n".join(f"{N} {d}" for N, d in cases),
+                         capture_output=True, text=True, check=True).stdout.split("\n")
+    shutil.rmtree(work)
+    return {c: tuple(int(v) for v in line.split()) for c, line in zip(cases, out)}
+
+
+@pytest.mark.parametrize("d", range(1, 9))
+def test_plan_mirror_equals_the_source(d):
+    """``fit_plan`` equals a g++ build of the source's "K3 plan" lines."""
+    plans = _source_plans()
+    for N in PLAN_N:
+        assert tuple(msf.fit_plan(N, d)) == plans[(N, d)], (N, d)
+
+
+@pytest.mark.parametrize("d", [2, 3, 8])
+def test_plan_shares_cover_the_points_and_fit_shared_memory(d):
+    """Each block's share covers N with 16-byte-aligned rows, its resident
+    part and the exchange buffers fit a block's shared memory (227 KB, also
+    the most any launch shape asks for), twice over where the share is small, and a
+    thread's points an iteration stay at the plan's target until the cluster
+    is at its largest."""
+    for N in PLAN_N:
+        p = msf.fit_plan(N, d)
+        assert p.cluster in (1, 2, 4, 8) and p.threads in (128, 256) and p.slots * (d + 1) <= 128
+        assert p.cluster * p.share >= N and p.share % 4 == 0 and p.resident % 4 == 0
+        assert 4 <= p.resident <= p.share and p.smem <= 232448 - 1024
+        assert msf.fit_smem_bytes(d, msf.FIT_MAX_CLUSTER, 256, p.resident) <= 232448 - 1024
+        if p.share * 4 * (d + 1) <= 100 * 1024:
+            assert 2 * (p.smem + 1024) <= 232448
+        if p.cluster < msf.FIT_MAX_CLUSTER:
+            assert -(-N // (p.cluster * p.threads)) <= msf.FIT_POINTS_PER_THREAD
+
+
+def test_plan_is_a_function_of_n_and_d_only():
+    """The plan takes no seed count, and a fit of every other seed gives the
+    full fit's bits for those seeds (what chip_smoke.py checks on the card)."""
+    assert list(inspect.signature(msf.fit_plan).parameters) == ["N", "d"]
+    X, seeds, x_norm, bw2, stop, max_iter = _problem("clusters_40")
+    valid = np.ones(len(X), bool)
+    full = _global_fit("clusters_40")
+    half = emu.fit(seeds[1::2], X, x_norm, valid, bw2, stop, max_iter, slots=16)
+    for h, f in zip(half, full):
+        np.testing.assert_array_equal(h, f[1::2])
