@@ -44,7 +44,7 @@ from .ops.otsu import quantile_device, threshold_otsu, threshold_otsu_device
 from .ops.peaks import smooth_peak_seeds
 from .parallel.mesh import as_devices, local_devices
 from .utils.env import resolve_flag
-from .utils.profiling import time_device
+from .utils.profiling import span, time_device
 
 
 def want_device_detect(inference_config: InferenceConfig) -> bool:
@@ -119,10 +119,11 @@ def _meanshift_detect_device(embeddings: np.ndarray, D: int, ic: InferenceConfig
         seeds = ms.bin_seeds(X_fit.cpu().numpy(), bin_size=bandwidth)
         if len(seeds) == 0:
             continue
-        centers, n_final = time_device("detect.device", ms.launch_fit, X_fit, seeds,
-                                       bandwidth, ic.mean_shift_max_iterations)
+        centers, n_final, n_iter = time_device("detect.device", ms.launch_fit, X_fit, seeds,
+                                               bandwidth, ic.mean_shift_max_iterations)
         bw2 = ms.fit_thresholds(bandwidth)[0]
         kept = ms._dedupe(centers, n_final, bw2)
+        ms.count_fit(n_iter, len(fit_idx))
         labels = time_device("detect.device", ms._predict, X, kept, bw2)
         det = torch.zeros(len(mask), dtype=torch.int32, device=dev)
         det[fg_t] = (labels + 1).int()
@@ -157,15 +158,16 @@ def detect_sample(
             embeddings, num_spatial_dims, ic, rng, device)
         return threshold, binary_mask, mean_center_embeddings(embeddings, binary_mask), detections
 
-    if ic.threshold is not None:
-        threshold = ic.threshold
-    elif ic.threshold_quantile is not None:
-        threshold = float(np.percentile(embeddings_std, ic.threshold_quantile))
-    else:
-        threshold = threshold_otsu(embeddings_std)
-
-    binary_mask = embeddings_std < threshold
-    centered = mean_center_embeddings(embeddings, binary_mask)
+    with span("detect: threshold"):
+        if ic.threshold is not None:
+            threshold = ic.threshold
+        elif ic.threshold_quantile is not None:
+            threshold = float(np.percentile(embeddings_std, ic.threshold_quantile))
+        else:
+            threshold = threshold_otsu(embeddings_std)
+        binary_mask = embeddings_std < threshold
+    with span("detect: centre"):
+        centered = mean_center_embeddings(embeddings, binary_mask)
     detections = np.zeros((ic.num_bandwidths, *embeddings_std.shape), dtype=np.uint16)
     bandwidths = [ic.bandwidth / (2**k) for k in range(ic.num_bandwidths)]
 
@@ -186,8 +188,9 @@ def detect_sample(
         # seeds depend on the offset field only: computed once a sample
         seeds = None
         if ic.use_seeds:
-            offset_magnitude = np.linalg.norm(centered[:-1], axis=0)
-            seeds = smooth_peak_seeds(offset_magnitude, sigma=2.0, device=device)
+            with span("detect: seeds"):
+                offset_magnitude = np.linalg.norm(centered[:-1], axis=0)
+                seeds = smooth_peak_seeds(offset_magnitude, sigma=2.0, device=device)
         source = centered if ic.use_seeds else embeddings
         for k, bandwidth in enumerate(bandwidths):
             segmentation = mean_shift_segmentation(

@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .mean_shift import add_coordinate_grid
 
 # iterations per batch: the host reads the done flag once per batch
@@ -147,28 +148,29 @@ def greedy_cluster(
     Returns:
         ``(*spatial,)`` int32 instance map (background 0).
     """
-    prediction = np.asarray(prediction, dtype=np.float32)
-    ndim = prediction.ndim - 1
-    uncertainty = prediction[ndim]
-    absolute = add_coordinate_grid(prediction[:ndim])
-    # min-max inverted score: low uncertainty -> score near 1
-    lo, hi = uncertainty.min(), uncertainty.max()
-    denom = lo - hi if lo != hi else 1.0
-    score = (uncertainty - hi) / denom
+    with span("greedy: prep"):
+        prediction = np.asarray(prediction, dtype=np.float32)
+        ndim = prediction.ndim - 1
+        uncertainty = prediction[ndim]
+        absolute = add_coordinate_grid(prediction[:ndim])
+        # min-max inverted score: low uncertainty -> score near 1
+        lo, hi = uncertainty.min(), uncertainty.max()
+        denom = lo - hi if lo != hi else 1.0
+        score = (uncertainty - hi) / denom
 
-    dev = torch.device(device)
-    P = int(np.prod(uncertainty.shape))
-    inputs = (torch.from_numpy(np.ascontiguousarray(absolute.reshape(ndim, P).T)),
-              torch.from_numpy(np.ascontiguousarray(score.ravel(), dtype=np.float32)),
-              torch.from_numpy(np.ascontiguousarray(fg_mask.ravel().astype(bool))),
-              bandwidth, min_object_size, seed_thresh, min_unclustered_sum)
+        dev = torch.device(device)
+        P = int(np.prod(uncertainty.shape))
+        inputs = (torch.from_numpy(np.ascontiguousarray(absolute.reshape(ndim, P).T)),
+                  torch.from_numpy(np.ascontiguousarray(score.ravel(), dtype=np.float32)),
+                  torch.from_numpy(np.ascontiguousarray(fg_mask.ravel().astype(bool))),
+                  bandwidth, min_object_size, seed_thresh, min_unclustered_sum)
+        loop = _Loop(P, ndim, dev, max_instances)
+        loop.load(*inputs)
     n = ITERATIONS_PER_BATCH
     syncs = 0
-    loop = _Loop(P, ndim, dev, max_instances)
-    loop.load(*inputs)
     run = lambda: loop.batch(n)  # noqa: E731
     if dev.type == "cuda":
-        with torch.cuda.device(dev):
+        with span("greedy: capture"), torch.cuda.device(dev):
             # one warm-up iteration, then the capture (which runs nothing),
             # then the loop from its start again
             side = torch.cuda.Stream(dev)
@@ -187,13 +189,15 @@ def greedy_cluster(
                 loop.batch(n)
             loop.reset()
             run = graph.replay
-    while True:
-        run()
-        syncs += 1
-        if bool(loop.done):
-            break
-    if stats is not None:
-        instances = int(loop.count) - 1
-        stats.update(iterations=int(loop.iterations), host_syncs=syncs, instances=instances,
-                     seeds=loop.seed_of[1:instances + 1].cpu().numpy())
-    return loop.instance_map.cpu().numpy().reshape(uncertainty.shape)
+    with span("greedy: loop"):
+        while True:
+            run()
+            syncs += 1
+            if bool(loop.done):
+                break
+    with span("greedy: fetch"):
+        if stats is not None:
+            instances = int(loop.count) - 1
+            stats.update(iterations=int(loop.iterations), host_syncs=syncs,
+                         instances=instances, seeds=loop.seed_of[1:instances + 1].cpu().numpy())
+        return loop.instance_map.cpu().numpy().reshape(uncertainty.shape)

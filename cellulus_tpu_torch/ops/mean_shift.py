@@ -35,7 +35,7 @@ import torch
 
 from .ball_stats import point_set
 from .mean_shift_fit import mean_shift_fit
-from ..utils.profiling import time_device
+from ..utils.profiling import count, recording, span, time_device
 
 
 def bin_seeds(X: np.ndarray, bin_size: float, min_bin_freq: int = 1) -> np.ndarray:
@@ -103,14 +103,33 @@ def fit_thresholds(bandwidth: float):
 def launch_fit(X_fit: torch.Tensor, seeds, bandwidth: float, max_iter: int):
     """The fit of ``seeds`` (host array or device tensor) on the device
     points ``X_fit``, launched without waiting for it: ``(centers,
-    n_final)``."""
+    n_final, n_iter)``."""
     dev = X_fit.device
     points = point_set(X_fit, torch.ones(len(X_fit), dtype=torch.bool, device=dev))
     bw2, stop_thresh = fit_thresholds(bandwidth)
     if isinstance(seeds, np.ndarray):
         seeds = torch.from_numpy(np.ascontiguousarray(seeds, dtype=np.float32)).to(dev)
-    centers, n_final, _, _ = mean_shift_fit(seeds, points, bw2, stop_thresh, max_iter)
-    return centers, n_final
+    centers, n_final, _, n_iter = mean_shift_fit(seeds, points, bw2, stop_thresh, max_iter)
+    return centers, n_final, n_iter
+
+
+def count_fit(n_iter: torch.Tensor, n_points: int) -> None:
+    """K3's counters of one fit of ``n_points`` points, while a profiler
+    records: ``k3.fits``, ``k3.points``, ``k3.seeds``, ``k3.seed_iterations``
+    (the sum of ``n_iter``), ``k3.pair_iterations`` (the live (seed, point)
+    pairs evaluated) and ``k3.iterations_max``. Called once the host has
+    waited for the fit (after :func:`_dedupe`), so the read of ``n_iter``
+    waits for nothing more."""
+    if not recording():
+        return
+    n_iter = n_iter.cpu().numpy().astype(np.int64)
+    seed_iterations = int(n_iter.sum())
+    count("k3.fits", 1)
+    count("k3.points", n_points)
+    count("k3.seeds", len(n_iter))
+    count("k3.seed_iterations", seed_iterations)
+    count("k3.pair_iterations", n_points * seed_iterations)
+    count("k3.iterations_max", int(n_iter.max(initial=0)), max)
 
 
 def mean_shift_fit_predict(
@@ -131,20 +150,24 @@ def mean_shift_fit_predict(
     n, d = X.shape
     if n == 0:
         return np.zeros((0,), np.int32)
-    X_fit = fit_subsample(X, reduction_probability, rng)
-    if seeds is None:
-        seeds = bin_seeds(X_fit, bin_size=bandwidth)
+    with span("detect: seeds"):
+        X_fit = fit_subsample(X, reduction_probability, rng)
+        if seeds is None:
+            seeds = bin_seeds(X_fit, bin_size=bandwidth)
     if len(seeds) == 0:
         return np.full((n,), -1, np.int32)
 
     dev = torch.device(device)
-    centers, n_final = time_device(
-        "detect.device", launch_fit, torch.from_numpy(np.ascontiguousarray(X_fit)).to(dev),
-        seeds, bandwidth, max_iter)
-    bw2 = fit_thresholds(bandwidth)[0]
-    kept = _dedupe(centers, n_final, bw2)
-    labels = time_device("detect.device", _predict, torch.from_numpy(X).to(dev), kept, bw2)
-    return labels.cpu().numpy().astype(np.int32)
+    with span("detect: fit"):
+        centers, n_final, n_iter = time_device(
+            "detect.device", launch_fit, torch.from_numpy(np.ascontiguousarray(X_fit)).to(dev),
+            seeds, bandwidth, max_iter)
+        bw2 = fit_thresholds(bandwidth)[0]
+        kept = _dedupe(centers, n_final, bw2)
+        count_fit(n_iter, len(X_fit))
+    with span("detect: label"):
+        labels = time_device("detect.device", _predict, torch.from_numpy(X).to(dev), kept, bw2)
+        return labels.cpu().numpy().astype(np.int32)
 
 
 def mean_shift_sweep_fit_predict(
@@ -186,8 +209,10 @@ def mean_shift_sweep_fit_predict(
     labels = np.full((K, n), -1, np.int32)
     for k, (b, fit) in enumerate(zip(bandwidths, fits)):
         if fit is not None:
+            centers, n_final, n_iter = fit
             bw2 = fit_thresholds(b)[0]
-            kept = _dedupe(*fit, bw2)
+            kept = _dedupe(centers, n_final, bw2)
+            count_fit(n_iter, len(X_fit))
             labels[k] = time_device("detect.device", _predict, X_t[on[k]], kept,
                                     bw2).cpu().numpy()
     return labels
@@ -232,13 +257,13 @@ def mean_shift_segmentation(
     mean = np.asarray(embedding_mean, dtype=np.float32)
     if mean.ndim == embedding_std.ndim + 2:
         mean = mean[0]
-    absolute = add_coordinate_grid(mean)
-    mask = embedding_std < threshold
-    if mask.sum() == 0:
-        return np.zeros(mask.shape, dtype=np.int32)
-
-    D = absolute.shape[0]
-    X = absolute.reshape(D, -1).T[mask.ravel()]
+    with span("detect: seeds"):
+        absolute = add_coordinate_grid(mean)
+        mask = embedding_std < threshold
+        if mask.sum() == 0:
+            return np.zeros(mask.shape, dtype=np.int32)
+        D = absolute.shape[0]
+        X = absolute.reshape(D, -1).T[mask.ravel()]
     labels = mean_shift_fit_predict(
         X,
         bandwidth=bandwidth,
@@ -248,6 +273,7 @@ def mean_shift_segmentation(
         rng=rng,
         device=device,
     )
-    spatial = np.full(mask.shape, -1, np.int32)
-    spatial[mask] = labels
-    return spatial + 1
+    with span("detect: label"):
+        spatial = np.full(mask.shape, -1, np.int32)
+        spatial[mask] = labels
+        return spatial + 1

@@ -50,6 +50,7 @@ from .models import UNet, compute_geometry
 from .parallel.mesh import as_devices, local_devices, replicate
 from .predict import predict_sample
 from .segment import segment_sample
+from .utils.profiling import span
 
 # stage workers: detect/segment of one sample overlaps the next sample's
 # predict; a second worker keeps host glue and device work of two samples
@@ -126,45 +127,45 @@ def infer_pipelined(
     device = torch.device(device)
     devices = local_devices(device=device) if devices is None else as_devices(devices)
     replicas = replicate(model, devices) if len(devices) > 1 else None
-    meta = DatasetMetaData.from_dataset_config(ic.dataset_config)
-    D = meta.num_spatial_dims
-    num_stage_workers = stage_workers_for(ic, meta, max(STAGE_WORKERS, len(devices)))
     if intervals is not None:
         for name in ("predict", "detect", "segment"):
             intervals.setdefault(name, {})
-
-    raw_ds = zarr.open(ic.dataset_config.container_path, "r")[ic.dataset_config.dataset_name]
-    if normalization_factor is None:
-        normalization_factor = normalization_factor_for(raw_ds.dtype)
-    out_tile = compute_geometry(tuple(ic.crop_size), model.downsampling_factors).output_size
-    ds_emb = zarr.open(ic.prediction_dataset_config.container_path, "a").create_dataset(
-        ic.prediction_dataset_config.dataset_name,
-        shape=(meta.num_samples, D + 1, *meta.spatial_array),
-        dtype=np.float32,
-        chunks=(1, D + 1, *out_tile),
-        compressor=None,  # float embeddings do not compress
-    )
-    f_det = zarr.open(ic.detection_dataset_config.container_path, "a")
-    ds_detection = f_det.create_dataset(
-        ic.detection_dataset_config.dataset_name,
-        shape=(meta.num_samples, ic.num_bandwidths, *meta.spatial_array),
-        dtype=np.uint16,
-    )
-    ds_binary = f_det.create_dataset(
-        "binary-segmentation", shape=(meta.num_samples, 1, *meta.spatial_array),
-        dtype=np.uint16,
-    )
-    ds_centered = f_det.create_dataset(
-        "centered-embeddings", shape=(meta.num_samples, D + 1, *meta.spatial_array),
-        dtype=np.float32, compressor=None,
-    )
-    ds_seg = zarr.open(ic.segmentation_dataset_config.container_path, "a").create_dataset(
-        ic.segmentation_dataset_config.dataset_name,
-        shape=(meta.num_samples, ic.num_bandwidths, *meta.spatial_array),
-        dtype=np.uint16,
-    )
-    for ds in (ds_emb, ds_detection, ds_binary, ds_centered, ds_seg):
-        ds.attrs.update(spatial_attrs(meta))
+    with span("pipeline: open"):
+        meta = DatasetMetaData.from_dataset_config(ic.dataset_config)
+        D = meta.num_spatial_dims
+        num_stage_workers = stage_workers_for(ic, meta, max(STAGE_WORKERS, len(devices)))
+        raw_ds = zarr.open(ic.dataset_config.container_path, "r")[ic.dataset_config.dataset_name]
+        if normalization_factor is None:
+            normalization_factor = normalization_factor_for(raw_ds.dtype)
+        out_tile = compute_geometry(tuple(ic.crop_size), model.downsampling_factors).output_size
+        ds_emb = zarr.open(ic.prediction_dataset_config.container_path, "a").create_dataset(
+            ic.prediction_dataset_config.dataset_name,
+            shape=(meta.num_samples, D + 1, *meta.spatial_array),
+            dtype=np.float32,
+            chunks=(1, D + 1, *out_tile),
+            compressor=None,  # float embeddings do not compress
+        )
+        f_det = zarr.open(ic.detection_dataset_config.container_path, "a")
+        ds_detection = f_det.create_dataset(
+            ic.detection_dataset_config.dataset_name,
+            shape=(meta.num_samples, ic.num_bandwidths, *meta.spatial_array),
+            dtype=np.uint16,
+        )
+        ds_binary = f_det.create_dataset(
+            "binary-segmentation", shape=(meta.num_samples, 1, *meta.spatial_array),
+            dtype=np.uint16,
+        )
+        ds_centered = f_det.create_dataset(
+            "centered-embeddings", shape=(meta.num_samples, D + 1, *meta.spatial_array),
+            dtype=np.float32, compressor=None,
+        )
+        ds_seg = zarr.open(ic.segmentation_dataset_config.container_path, "a").create_dataset(
+            ic.segmentation_dataset_config.dataset_name,
+            shape=(meta.num_samples, ic.num_bandwidths, *meta.spatial_array),
+            dtype=np.uint16,
+        )
+        for ds in (ds_emb, ds_detection, ds_binary, ds_centered, ds_seg):
+            ds.attrs.update(spatial_attrs(meta))
     nucleus = ic.post_processing == "nucleus"
 
     local = threading.local()
@@ -191,15 +192,17 @@ def infer_pipelined(
         try:
             label = f"detect+segment sample {sample}"
             dev = devices[sample % len(devices)] if len(devices) > 1 else device
-            with torch.profiler.record_function(label), worker_stream(dev):
+            with span(label), worker_stream(dev):
                 t0 = time.perf_counter()
                 threshold, binary_mask, centered, detections = detect_sample(
                     embeddings, ic, D, sample_rng(ic.seed, sample), dev, devices=devices)
                 t1 = time.perf_counter()
                 print(f"For sample {sample}, binary threshold {threshold} was used.")
                 raw_image = np.asarray(raw_ds[sample, 0]) if nucleus else None
-                segs = [segment_sample(detections[k], raw_image, ic, dev)
-                        for k in range(ic.num_bandwidths)]
+                segs = []
+                for k in range(ic.num_bandwidths):
+                    with span("segment: sample"):
+                        segs.append(segment_sample(detections[k], raw_image, ic, dev))
                 t2 = time.perf_counter()
             write(ds_binary, (sample, 0), binary_mask.astype(np.uint16))
             write(ds_centered, sample, centered)
@@ -216,10 +219,12 @@ def infer_pipelined(
             concurrent.futures.ThreadPoolExecutor(max_workers=num_stage_workers) as stage_pool:
         stage_futures = []
         for sample in range(meta.num_samples):
-            inflight.acquire()
-            with torch.profiler.record_function(f"predict sample {sample}"):
+            with span("pipeline: slot wait"):
+                inflight.acquire()
+            with span(f"predict sample {sample}"):
                 t0 = time.perf_counter()
-                raw = np.asarray(raw_ds[sample], dtype=np.float32)
+                with span("predict: read"):
+                    raw = np.asarray(raw_ds[sample], dtype=np.float32)
                 embeddings = predict_sample(model, raw, ic, float(normalization_factor),
                                             sample, device, compute_dtype, devices=devices,
                                             replicas=replicas)
@@ -228,8 +233,9 @@ def infer_pipelined(
                 intervals["predict"][sample] = (t0, t1)
             write(ds_emb, sample, embeddings)
             stage_futures.append(stage_pool.submit(process_sample, sample, embeddings))
-        for fut in stage_futures:
-            fut.result()
-        # every write is submitted once its sample's stage is done
-        for fut in list(write_futures):
-            fut.result()
+        with span("pipeline: drain"):
+            for fut in stage_futures:
+                fut.result()
+            # every write is submitted once its sample's stage is done
+            for fut in list(write_futures):
+                fut.result()

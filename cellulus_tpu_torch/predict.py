@@ -40,7 +40,7 @@ from .models import UNet, compute_geometry, tta_embeddings
 from .parallel.mesh import as_devices, local_devices, replicate, shard_batch
 from .parallel.spatial import spatial_devices, spatial_tta_sample
 from .utils.device import seeded_generator
-from .utils.profiling import time_device
+from .utils.profiling import span, time_device
 from .utils.progress import progress
 
 
@@ -185,21 +185,24 @@ def predict_sample(
     p = float(inference_config.p_salt_pepper)
     D = model.head[2].out_channels
 
-    origins = list(itertools.product(
-        *[tile_origins(max(s, o), o) for s, o in zip(spatial, out_tile)]
-    ))
-    gen = seeded_generator(device, inference_config.seed, sample_seed)
-    tb = max(1, int(inference_config.tile_batch_size))
-    transfer_dtype = (
-        torch.float16 if inference_config.transfer_precision == "float16" else torch.float32
-    )
-    slots = _HostSlots(device, tb, out_tile, D + 1, transfer_dtype)
-    result = None if write_fn is not None else np.zeros((D + 1, *spatial), dtype=np.float32)
+    # the sample's tile grid, generator and pinned slots
+    with span("predict: tiles"):
+        origins = list(itertools.product(
+            *[tile_origins(max(s, o), o) for s, o in zip(spatial, out_tile)]
+        ))
+        gen = seeded_generator(device, inference_config.seed, sample_seed)
+        tb = max(1, int(inference_config.tile_batch_size))
+        transfer_dtype = (
+            torch.float16 if inference_config.transfer_precision == "float16" else torch.float32
+        )
+        slots = _HostSlots(device, tb, out_tile, D + 1, transfer_dtype)
+        result = None if write_fn is not None else np.zeros((D + 1, *spatial), dtype=np.float32)
 
     def run_batch(host_tiles, slot):
-        tiles = slots.upload(host_tiles, slot)
-        uniform = draw_uniform(gen, tiles.shape, nii, device)
-        with torch.no_grad():
+        with span("predict: upload"):
+            tiles = slots.upload(host_tiles, slot)
+        with span("predict: forward"), torch.no_grad():
+            uniform = draw_uniform(gen, tiles.shape, nii, device)
             if len(devices) == 1:
                 return tta_embeddings(model, tiles, uniform, p, nii, compute_dtype)
             # one chunk of the batch (and of its draws) a device, in order
@@ -211,26 +214,34 @@ def predict_sample(
             return torch.cat([o.to(device) for o in outs])
 
     def emit(fetch, batch):
-        for tile_out, origin in zip(_HostSlots.finish_fetch(fetch), batch):
-            sel = tuple(slice(o, min(o + t, s)) for o, t, s in zip(origin, out_tile, spatial))
-            data = tile_out[(slice(None),) + tuple(slice(0, sl.stop - sl.start) for sl in sel)]
-            if write_fn is not None:
-                write_fn(data, tuple(sl.start for sl in sel))
-            else:
-                result[(slice(None),) + sel] = data
+        with span("predict: wait"):
+            tiles_out = _HostSlots.finish_fetch(fetch)
+        with span("predict: emit"):
+            for tile_out, origin in zip(tiles_out, batch):
+                sel = tuple(slice(o, min(o + t, s))
+                            for o, t, s in zip(origin, out_tile, spatial))
+                data = tile_out[(slice(None),)
+                                + tuple(slice(0, sl.stop - sl.start) for sl in sel)]
+                if write_fn is not None:
+                    write_fn(data, tuple(sl.start for sl in sel))
+                else:
+                    result[(slice(None),) + sel] = data
 
     pending = None
     starts = progress(range(0, len(origins), tb), f"predict tiles (batch of {tb})",
                       total=-(-len(origins) // tb))
     for n, start in enumerate(starts):
         batch = origins[start : start + tb]
-        host_tiles = np.stack([
-            np.moveaxis(source(tuple(o - c for o, c in zip(origin, context)), in_tile), 0, -1)
-            for origin in batch
-        ]).astype(np.float32)
+        with span("predict: tiles"):
+            host_tiles = np.stack([
+                np.moveaxis(source(tuple(o - c for o, c in zip(origin, context)), in_tile),
+                            0, -1)
+                for origin in batch
+            ]).astype(np.float32)
         # the upload and the forward; not the copy back
         out = time_device("predict.device", run_batch, host_tiles, n % 2)
-        fetch = slots.start_fetch(out, n % 2)
+        with span("predict: forward"):
+            fetch = slots.start_fetch(out, n % 2)
         if pending is not None:
             emit(*pending)
         pending = (fetch, batch)

@@ -1,4 +1,4 @@
-"""Per-stage timers, device timers and profiler traces.
+"""Per-stage timers, device timers, profiler spans and counters, traces.
 
 Port of ``cellulus_tpu/utils/profiling.py``:
 
@@ -11,26 +11,38 @@ Port of ``cellulus_tpu/utils/profiling.py``:
 - ``maybe_trace()`` captures a ``torch.profiler`` trace of its region when
   ``CELLULUS_TPU_PROFILE=<dir>`` is set (CPU ops, and the card's kernels
   and copies when CUDA is available), written as a Chrome-trace JSON
-  (viewable in Perfetto or ``chrome://tracing``).
+  (viewable in Perfetto or ``chrome://tracing``);
+- ``span(name)`` and ``count(name, value)`` mark the inference path's
+  layers for a profiler: while a ``torch.profiler`` records this process
+  (``maybe_trace``, or any caller's profiler, on every thread it records),
+  ``span`` opens ``record_function(name)``, a span on the profiler's own
+  clock beside the card's kernels, and ``count`` adds ``value`` into the
+  process's counters (:func:`counters`). Otherwise each is one check of a
+  flag: no span, no allocation, no synchronisation.
 
-The report is shared by every thread (the pipelined path times its worker
-threads' device calls too), so updates take a lock.
+The report and the counters are shared by every thread (the pipelined path
+times and counts its worker threads' work too), so updates take a lock.
 """
 
 from __future__ import annotations
 
 import contextlib
+import operator
 import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from .env import env_flag
 
 _STAGES: Dict[str, Dict[str, float]] = {}
+_COUNTERS: Dict[str, float] = {}
 _LOCK = threading.Lock()
+# what span() returns while no profiler records: shared, stateless
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _accumulate(name: str, seconds: float, items: float) -> None:
@@ -61,8 +73,42 @@ def perf_report() -> Dict[str, Dict[str, float]]:
 
 
 def reset_perf() -> None:
+    """Clear the stage report and the counters."""
     with _LOCK:
         _STAGES.clear()
+        _COUNTERS.clear()
+
+
+def recording() -> bool:
+    """Does a ``torch.profiler`` record this process? torch sets this flag
+    for the whole process while a profiler runs, so it reads true on every
+    thread (``profile_all_threads`` records the worker threads' spans)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler records, else a shared
+    no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, value: float,
+          combine: Callable[[float, float], float] = operator.add) -> None:
+    """While a profiler records, fold ``value`` into counter ``name`` with
+    ``combine`` (a sum by default; ``max`` keeps the largest)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    with _LOCK:
+        _COUNTERS[name] = combine(_COUNTERS[name], value) if name in _COUNTERS else value
+
+
+def counters() -> Dict[str, float]:
+    """The counters of this process: what was counted while a profiler
+    recorded."""
+    with _LOCK:
+        return dict(_COUNTERS)
 
 
 def device_timers_enabled() -> bool:
@@ -133,4 +179,7 @@ def maybe_trace():
         yield
     prof.export_chrome_trace(
         os.path.join(trace_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
-    print(f"[perf] profiler trace written to {trace_dir}")
+    counted = counters()
+    print(f"[perf] profiler trace written to {trace_dir}"
+          + ("; counters " + ", ".join(f"{k} {v}" for k, v in sorted(counted.items()))
+             if counted else ""))

@@ -14,8 +14,8 @@ from cellulus_tpu_torch.ops import mean_shift as ms
 
 def kept_centres_port(X_fit, seeds, bandwidth, max_iter=300):
     """The port's kept centres (CPU) of a fit, in label order."""
-    centers, n_final = ms.launch_fit(torch.from_numpy(np.ascontiguousarray(X_fit)), seeds,
-                                     bandwidth, max_iter)
+    centers, n_final, _ = ms.launch_fit(torch.from_numpy(np.ascontiguousarray(X_fit)), seeds,
+                                        bandwidth, max_iter)
     return ms._dedupe(centers, n_final, ms.fit_thresholds(bandwidth)[0]).numpy()
 
 
