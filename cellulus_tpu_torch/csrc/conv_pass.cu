@@ -63,11 +63,12 @@
 //     Footprint: mid + max(in, mid) + ring; the input buffer takes stage
 //     2's output and the output tile.
 // (5) The staged route read each input tile once per 64 output channels,
-//     16 channels and a barrier at a time. It now runs on the same producer
-//     and consumers, one launch per stage: a block takes a 16 x 16 output
-//     tile and one n-block, its input streamed by TMA in slices of 32 (bf16)
-//     or 16 (f32) channels a 3x3 chunk, 64 or 32 a 1x1 chunk; its output
-//     tile is staged in shared memory of its own.
+//     16 channels and a barrier at a time. In float32 it now runs on the
+//     same producer and consumers, one launch per stage: a block takes a
+//     16 x 16 output tile and one n-block, its input streamed by TMA in
+//     slices of 16 channels a 3x3 chunk, 32 a 1x1 chunk; its output tile is
+//     staged in shared memory of its own. bfloat16 takes its own kernel,
+//     below.
 // (6) Scalar 2-byte output stores. The last stage's tile now goes to shared
 //     memory (bias, ReLU and rounding in registers), then to the image with
 //     16-byte coalesced stores. Intermediates are stored as pairs.
@@ -112,12 +113,49 @@
 // pixel and are not stored; k rows past the stage's K read pixel 0 against
 // zero weight rows.
 //
+// The bf16 staged route (conv_stage_kernel_persistent) is a persistent
+// implicit GEMM per K x K stage, for the 256 -> 768 channel bottom pass of a
+// 256-fmap model, where no fused tile fits. Its stages are large plain
+// GEMMs (M = B x 122^2 pixels, N = 768, K = 9 x 256, 768, 768, 9 x 768;
+// about 1,750 FLOP a byte even with the intermediates in device memory), so
+// operations bound them; the earlier 16 x 16 x 64-column block read each
+// input slice again for every 64 output columns, fed A from registers
+// (wgmma serialised, C7512) and paid each block's ring fill and epilogue
+// alone, about 26% of the bound. Now:
+//   - a tile is 128 output pixels (a box of bh x bw, the one that pads the
+//     grid least: 1 x 128 at the 122- and 120-wide grids) x 256 output
+//     channels; two consumer warpgroups each issue wgmma m64n256k16 on 64
+//     of its pixels (128 f32 accumulators a thread), one group in flight,
+//     so each fetched input slice feeds 4x the columns it did;
+//   - both operands come from shared memory by descriptor, K-major in
+//     128-byte swizzled rows: A for tap (dy, dx) and 64 input channels is
+//     one TMA box of the NHWC input at (c0, x0 + dx, y0 + dy, image), whose
+//     128-byte swizzled layout is the descriptor's and whose zero fill
+//     takes the image edge (tiled boxes, not TMA's im2col mode: the
+//     4D tiled map the kernels already use, at 5-6% padded rows on the
+//     bottom pass's grids); B is a chunk of the weights packed once a call
+//     (ops/conv_pass.py pack_stage_persistent) into that layout, one 32 KB
+//     bulk copy into the same slot;
+//   - a ring of 3 slots of 48 KB beside the 64 KB output tile, on full
+//     and empty mbarriers, fed by one producer warp (288 threads, so
+//     ptxas may give each thread up to 224 registers without setmaxnreg);
+//   - one block an SM walks the tiles with the n-tiles of an m-tile
+//     neighbours (its input leaves device memory once; a stage's weights,
+//     at most 10.6 MB, stay in L2); each tile's epilogue (f32 bias, ReLU,
+//     one rounding to bf16, conflict-free into swizzled shared memory, then
+//     four TMA stores clipped at the output's edge) overlaps the producer's
+//     loads of the next tile.
+// At 87 FLOP a byte of L2 traffic a chunk, the 3x3 stages reached 75-78% of
+// the tensor cores' peak on the H100 and the 1x1 stages 57% (PERF.md), so
+// L2 feeds the ring without a cluster multicasting B.
+//
 // Registers and spills (nvcc -Xptxas -v, CUDA 12.8, as chip_smoke.py
-// prints them at its build): every kernel 168 registers a thread, 2 named
-// barriers; spill stores / loads in bytes: conv_pass_kernel<bf16> 176 /
-// 256, conv_pass_kernel<float> 1,180 / 2,388, conv_stage_kernel<bf16> 32 /
-// 32, conv_stage_kernel<float> none. ptxas reports the wgmmas of the two
-// bf16 kernels serialised for register resources (C7512).
+// prints them at its build): every kernel 168 registers a thread;
+// conv_pass_kernel and conv_stage_kernel 2 named barriers, spill stores /
+// loads in bytes: conv_pass_kernel<bf16> 176 / 256, conv_pass_kernel<float>
+// 1,180 / 2,388, conv_stage_kernel<float> none; ptxas reports the wgmmas
+// of conv_pass_kernel<bf16> serialised for register resources (C7512).
+// conv_stage_kernel_persistent: no spill, no C7512.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -187,6 +225,78 @@ template <typename T>
 __host__ __device__ constexpr int wrow() {
   return NB * Cfg<T>::esz;
 }
+
+// ---- K1 staged plan begin: plain C++ (the CPU tests build it with g++) ---
+// The bf16 staged route (conv_stage_kernel_persistent): tiles of 128 output
+// pixels, a box of bh x bw (bh = 1, 2, 4 or 8), x 256 output channels; K
+// in chunks of one tap x 64 input channels.
+constexpr int kGemmM = 128, kGemmN = 256, kGemmK = 64;
+constexpr int kGemmABytes = kGemmM * kGemmK * 2;  // one TMA box of the input, 16 KB
+constexpr int kGemmBBytes = kGemmN * kGemmK * 2;  // one bulk copy of the weights, 32 KB
+constexpr int kGemmSlotBytes = kGemmABytes + kGemmBBytes;
+constexpr int kGemmOutBytes = kGemmM * kGemmN * 2;  // the epilogue's output tile
+constexpr int kGemmMaxSlots = 8;
+constexpr int kGemmAlign = 1024;  // the 128-byte swizzle's period
+constexpr long long kGemmSmemLimit = 232448;
+
+struct GemmPlan {
+  int bh, bw;                   // the box of 128 output pixels
+  int tiles_y, tiles_x;         // boxes over one output image
+  long long m_tiles;            // boxes over the batch
+  int n_tiles;                  // 256-column tiles of C
+  long long tiles;              // m_tiles x n_tiles, the blocks' walk
+  int n_cb, chunks;             // 64-channel blocks of cin; chunks a tile (K x K x n_cb)
+  int slots;                    // ring slots of A and B
+  long long smem;               // dynamic shared bytes, the alignment's slack included
+};
+
+__host__ __device__ inline int gemm_cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The box is the one that pads the output grid least (the widest on a tie).
+// The ring takes what shared memory leaves beside the output tile, the
+// barriers and the alignment's slack.
+__host__ __device__ inline GemmPlan gemm_plan(int B, int oh, int ow, int K, int cin, int C) {
+  GemmPlan p;
+  long long best = -1;
+  p.bh = 1;
+  for (int bh = 1; bh <= 8; bh *= 2) {
+    const int bw = kGemmM / bh;
+    const long long area = (long long)gemm_cdiv(oh, bh) * bh * gemm_cdiv(ow, bw) * bw;
+    if (best < 0 || area < best) {
+      best = area;
+      p.bh = bh;
+    }
+  }
+  p.bw = kGemmM / p.bh;
+  p.tiles_y = gemm_cdiv(oh, p.bh);
+  p.tiles_x = gemm_cdiv(ow, p.bw);
+  p.m_tiles = (long long)B * p.tiles_y * p.tiles_x;
+  p.n_tiles = gemm_cdiv(C, kGemmN);
+  p.tiles = p.m_tiles * p.n_tiles;
+  p.n_cb = gemm_cdiv(cin, kGemmK);
+  p.chunks = K * K * p.n_cb;
+  const long long fixed = kGemmAlign + kGemmOutBytes + 2 * kGemmMaxSlots * 8;
+  const long long s = (kGemmSmemLimit - fixed) / kGemmSlotBytes;
+  p.slots = (int)(s < kGemmMaxSlots ? s : kGemmMaxSlots);
+  p.smem = fixed + (long long)p.slots * kGemmSlotBytes;
+  return p;
+}
+
+// Tile t of the walk: the n-tiles of one m-tile are neighbours, so that
+// blocks running together share its input in L2 and it leaves device
+// memory once; every weight tile of a stage (at most 10.6 MB at C = 768)
+// stays in L2. Chunk c of a tile is tap c / n_cb, channels 64 (c % n_cb).
+__host__ __device__ inline void gemm_tile(const GemmPlan& p, long long t, int& img, int& y0,
+                                          int& x0, int& nt) {
+  nt = (int)(t % p.n_tiles);
+  const long long m = t / p.n_tiles;
+  const long long per_img = (long long)p.tiles_y * p.tiles_x;
+  img = (int)(m / per_img);
+  const int r = (int)(m - img * per_img);
+  y0 = (r / p.tiles_x) * p.bh;
+  x0 = (r % p.tiles_x) * p.bw;
+}
+// ---- K1 staged plan end ----------------------------------------------------
 
 // One stage as the producer and the consumers walk it.
 struct Stage {
@@ -295,7 +405,7 @@ __host__ __device__ inline Layout fused_layout(int cin, int C, int th, int tw) {
   return finish_layout(L, slot);
 }
 
-// The staged route: the barriers, the output tile's staging area, the ring.
+// The float32 staged route: the barriers, the output tile's staging area, the ring.
 template <typename T>
 __host__ __device__ inline Layout staged_layout(int K, int cin, int th, int tw) {
   const Stage s = make_stage<T>(K, cin, th, tw, stream_sb<T>(K, cin), 1, 0, 0, 1);
@@ -759,6 +869,136 @@ conv_stage_kernel(const __grid_constant__ CUtensorMap tmap, const unsigned char*
   }
 }
 
+// One K x K stage of the bf16 staged route: (B, oh + K - 1, ow + K - 1,
+// cin) -> (B, oh, ow, C), a persistent implicit GEMM. One block an SM walks
+// the plan's tiles (gemm_tile); a producer warp (warp 8) streams each
+// tile's chunks into a ring of slots, A as a TMA box of the input at the
+// chunk's tap and B as one bulk copy of packed weights, both completing on
+// the slot's full barrier; two consumer warpgroups each issue wgmma
+// m64n256k16 on 64 of the tile's pixels, both operands read from the slot
+// by descriptor, one wgmma group in flight, and release the slot on its
+// empty barrier (one arrival a warp) once the group after it is issued.
+// The epilogue (bias, ReLU, one rounding to bf16) writes the warpgroup's
+// 64 x 256 tile to shared memory in 128-byte swizzled rows, which four TMA
+// stores take to the output, clipped at its edges; meanwhile the producer
+// fills the ring with the next tile's chunks.
+constexpr int kGemmThreads = 288;  // two consumer warpgroups, then the producer warp
+constexpr int kGemmEmptyArrivals = 8;
+
+__global__ void __launch_bounds__(kGemmThreads, 1)
+conv_stage_kernel_persistent(const __grid_constant__ CUtensorMap in_map,
+                             const __grid_constant__ CUtensorMap out_map,
+                             const unsigned char* __restrict__ w, const float* __restrict__ bias,
+                             int B, int oh, int ow, int K, int cin, int C) {
+  extern __shared__ __align__(1024) unsigned char gemm_smem[];
+  const GemmPlan p = gemm_plan(B, oh, ow, K, cin, C);
+  unsigned char* ring = gemm_smem + ((kGemmAlign - (smem_u32(gemm_smem) & (kGemmAlign - 1))) &
+                                     (kGemmAlign - 1));
+  unsigned char* staging = ring + (size_t)p.slots * kGemmSlotBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + kGemmOutBytes);
+  uint64_t* empty = full + kGemmMaxSlots;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.slots; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kGemmEmptyArrivals);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+  int slot = 0;
+  uint32_t phase = 0;
+  if (warp == 8) {  // the producer: one thread issues every copy
+    if (lane == 0)
+      for (long long t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+        int img, y0, x0, nt;
+        gemm_tile(p, t, img, y0, x0, nt);
+        const unsigned char* wt = w + (size_t)nt * p.chunks * kGemmBBytes;
+        for (int c = 0; c < p.chunks; ++c) {
+          const int tap = c / p.n_cb, cb = c - tap * p.n_cb;
+          mbar_wait(&empty[slot], phase ^ 1);
+          unsigned char* dst = ring + (size_t)slot * kGemmSlotBytes;
+          mbar_arrive_tx(&full[slot], kGemmSlotBytes);
+          tma_load_4d(dst, &in_map, cb * kGemmK, x0 + tap % K, y0 + tap / K, img, &full[slot]);
+          bulk_g2s(dst + kGemmABytes, wt + (size_t)c * kGemmBBytes, kGemmBBytes, &full[slot]);
+          if (++slot == p.slots) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    return;
+  }
+
+  const int wg = warp >> 2, wq = warp & 3;  // warpgroup; warp within it
+  const int g = lane >> 2, tq = lane & 3, tid = threadIdx.x & 127;
+  unsigned char* st = staging + wg * (kGemmOutBytes / 2);  // four 64 x 64 swizzled tiles
+  // the warpgroup's 64 pixels in the box: half of a 1 x 128 row, else
+  // 64 / bw rows; the TMA store box is (64, sw, 64 / sw)
+  const int sw = p.bw < 64 ? p.bw : 64;
+  const int sx = p.bw > 64 ? 64 * wg : 0, sy = p.bw > 64 ? 0 : wg * (64 / sw);
+  for (long long t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    int img, y0, x0, nt;
+    gemm_tile(p, t, img, y0, x0, nt);
+    float acc[128];
+    int prev = 0;
+    for (int c = 0; c < p.chunks; ++c) {
+      mbar_wait(&full[slot], phase);
+      const unsigned char* a = ring + (size_t)slot * kGemmSlotBytes;
+      const uint64_t da = desc_kmajor_sw128(a + wg * (kGemmABytes / 2));
+      const uint64_t db = desc_kmajor_sw128(a + kGemmABytes);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kGemmK / 16; ++k)  // 16 K values (32 bytes) a wgmma
+        wgmma_bf16_n256_ss(acc, da + 2 * k, db + 2 * k, c > 0 || k > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the group before this one is done: its slot is free
+      if (c > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = slot;
+      if (++slot == p.slots) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    pin(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // the previous tile's stores have read the staging area
+    if (tid == 0) bulk_wait<0, 1>();
+    named_sync(1 + wg, 128);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = nt * kGemmN + 8 * j + 2 * tq;
+      const float b0 = col < C ? __ldg(bias + col) : 0.f;
+      const float b1 = col + 1 < C ? __ldg(bias + col + 1) : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = 16 * wq + g + 8 * h;  // the pixel, row q of the 64; q % 8 = g
+        *reinterpret_cast<__nv_bfloat162*>(st + (j >> 3) * 8192 + q * 128 +
+                                           (((j & 7) ^ g) << 4) + 4 * tq) =
+            __floats2bfloat162_rn(fmaxf(acc[4 * j + 2 * h] + b0, 0.f),
+                                  fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f));
+      }
+    }
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+    if (tid == 0) {
+      for (int s = 0; s < kGemmN / 64; ++s)
+        if (nt * kGemmN + 64 * s < C)
+          tma_store_4d(&out_map, st + s * 8192, nt * kGemmN + 64 * s, x0 + sx, y0 + sy, img);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait<0, 0>();
+}
+
 // Relative cost of a pass with th x tw tiles over an H x W input: blocks x
 // the k steps of the busier consumer warpgroup, summed over stages and
 // rounds, each round charged one m64 tile more for its fill and epilogue.
@@ -806,19 +1046,55 @@ int launch_stage(const T* x, const void* w, const float* b, T* out, int B, int H
   return (int)cudaGetLastError();
 }
 
+// One stage of the bf16 staged route: a block on each SM (or one a tile).
+int launch_stage_persistent(const void* x, const void* w, const float* b, void* out, int B, int H,
+                            int W, int K, int cin, int C, cudaStream_t stream) {
+  const int oh = H - K + 1, ow = W - K + 1;
+  const GemmPlan p = gemm_plan(B, oh, ow, K, cin, C);
+  CUtensorMap in_map, out_map;
+  int rc = tmap::encode_nhwc(&in_map, x, B, H, W, cin, kGemmK, p.bw, p.bh, 2, true);
+  if (rc) return rc;
+  const int sw = p.bw < 64 ? p.bw : 64;
+  rc = tmap::encode_nhwc(&out_map, out, B, oh, ow, C, 64, sw, 64 / sw, 2, true);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(conv_stage_kernel_persistent,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (int)(p.tiles < sms ? p.tiles : sms);
+  conv_stage_kernel_persistent<<<grid, kGemmThreads, p.smem, stream>>>(
+      in_map, out_map, (const unsigned char*)w, b, B, oh, ow, K, cin, C);
+  return (int)cudaGetLastError();
+}
+
 // The staged route: the pass's four stages, one launch each, x -> s0 -> s1
-// -> s0 -> out; s0 and s1 hold (B, H-2, W-2, C) in the compute type.
+// -> s0 -> out; s0 and s1 hold (B, H-2, W-2, C) in the compute type. bf16
+// takes the persistent kernel (th, tw unused), float32 conv_stage_kernel.
+template <typename T>
+int launch_stage_any(const T* x, const void* w, const float* b, T* out, int B, int H, int W,
+                     int K, int cin, int C, int th, int tw, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2)
+    return launch_stage_persistent(x, w, b, out, B, H, W, K, cin, C, stream);
+  else
+    return launch_stage<T>(x, w, b, out, B, H, W, K, cin, C, th, tw, stream);
+}
+
 template <typename T>
 int launch_staged(const void* x, const void* const* w, const float* const* b, void* out, void* s0,
                   void* s1, int B, int H, int W, int cin, int C, int th, int tw,
                   cudaStream_t stream) {
   T* t0 = (T*)s0;
   T* t1 = (T*)s1;
-  int rc = launch_stage<T>((const T*)x, w[0], b[0], t0, B, H, W, 3, cin, C, th, tw, stream);
-  if (rc == 0) rc = launch_stage<T>(t0, w[1], b[1], t1, B, H - 2, W - 2, 1, C, C, th, tw, stream);
-  if (rc == 0) rc = launch_stage<T>(t1, w[2], b[2], t0, B, H - 2, W - 2, 1, C, C, th, tw, stream);
+  int rc = launch_stage_any<T>((const T*)x, w[0], b[0], t0, B, H, W, 3, cin, C, th, tw, stream);
   if (rc == 0)
-    rc = launch_stage<T>(t0, w[3], b[3], (T*)out, B, H - 2, W - 2, 3, C, C, th, tw, stream);
+    rc = launch_stage_any<T>(t0, w[1], b[1], t1, B, H - 2, W - 2, 1, C, C, th, tw, stream);
+  if (rc == 0)
+    rc = launch_stage_any<T>(t1, w[2], b[2], t0, B, H - 2, W - 2, 1, C, C, th, tw, stream);
+  if (rc == 0)
+    rc = launch_stage_any<T>(t0, w[3], b[3], (T*)out, B, H - 2, W - 2, 3, C, C, th, tw, stream);
   return rc;
 }
 
@@ -865,10 +1141,31 @@ long long conv_pass_2d_cost(int cin, int C, int th, int tw, int H, int W, int el
 }
 
 // Bytes of dynamic shared memory one block of the staged route needs for a
-// K x K stage (K = 1 or 3) with cin input channels and a th x tw output tile.
+// K x K stage (K = 1 or 3) with cin input channels and a th x tw output tile
+// (float32); bf16's persistent kernel needs the same at every shape.
 long long conv_pass_2d_staged_smem_bytes(int K, int cin, int th, int tw, int elem_bytes) {
-  return elem_bytes == 2 ? staged_layout<__nv_bfloat16>(K, cin, th, tw).total
+  return elem_bytes == 2 ? gemm_plan(1, 1, 1, K, cin, kGemmN).smem
                          : staged_layout<float>(K, cin, th, tw).total;
+}
+
+// The bf16 staged route's plan of a K x K stage with output grid oh x ow:
+// out[0..10] = bh, bw, tiles_y, tiles_x, m_tiles, n_tiles, tiles, n_cb,
+// chunks, slots, shared bytes. Returns 0.
+int conv_pass_2d_staged_plan(int B, int oh, int ow, int K, int cin, int C, long long* out) {
+  const GemmPlan p = gemm_plan(B, oh, ow, K, cin, C);
+  const long long v[11] = {p.bh, p.bw, p.tiles_y, p.tiles_x, p.m_tiles, p.n_tiles,
+                           p.tiles, p.n_cb, p.chunks, p.slots, p.smem};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
+  return 0;
+}
+
+// One stage of the bf16 staged route alone: x (B, H, W, cin) -> out (B,
+// H-K+1, W-K+1, C), w packed by the wrapper (pack_stage_persistent), b f32.
+// Returns the error code (0 = ok).
+int conv_pass_2d_stage_launch(const void* x, const void* w, const void* b, void* out, int B,
+                              int H, int W, int K, int cin, int C, void* stream) {
+  return launch_stage_persistent(x, w, (const float*)b, out, B, H, W, K, cin, C,
+                                 (cudaStream_t)stream);
 }
 
 // The staged route (one launch per stage); w1..w4 packed by the wrapper for

@@ -5,17 +5,18 @@
 //   expected transaction count alone, and a wait on a phase's parity;
 // - bulk copies global -> shared that complete on an mbarrier: a plain
 //   contiguous copy (cp.async.bulk) and a 4D TMA tile (cp.async.bulk.tensor,
-//   zeros where the box leaves the tensor);
+//   zeros where the box leaves the tensor); the 4D TMA store shared ->
+//   global (clipped where the box leaves the tensor) and its bulk groups;
 // - cp.async 16-byte copies (zero fill) for the one-off input tile;
 //   ldmatrix, plain and transposed; the async-proxy fence that orders
 //   generic shared-memory writes before wgmma reads them;
 // - wgmma: fence, commit, wait, shared-memory matrix descriptors (K-major
-//   without swizzle, and MN-major bf16 in 128-byte swizzled rows), and the
-//   products K1 and K2 issue, all
-//   with A from registers and B from shared memory by descriptor, f32
-//   accumulators: m64n64k16 bf16 (B K-major, or MN-major with the
-//   transpose bit), m64n64k8 and m64n32k8 tf32 (f32 bit patterns, read as
-//   tf32 by dropping their low 13 bits);
+//   without swizzle, K-major and MN-major bf16 in 128-byte swizzled rows),
+//   and the products K1 and K2 issue, f32 accumulators: with A from
+//   registers and B from shared memory by descriptor, m64n64k16 bf16 (B
+//   K-major, or MN-major with the transpose bit), m64n64k8 and m64n32k8
+//   tf32 (f32 bit patterns, read as tf32 by dropping their low 13 bits);
+//   with both operands by descriptor, m64n256k16 bf16 (K-major);
 // - setmaxnreg and named barriers for warp specialisation;
 // - the tf32 split of an f32 value for 3xTF32.
 //
@@ -119,6 +120,31 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, int c0, 
       : "memory");
 }
 
+// the 4D box at shared address src (laid out as tma_load_4d writes it) to
+// `map` at coordinates (c0 innermost .. c3); elements outside the tensor
+// are not written. Completes in this thread's bulk group (bulk_commit).
+__device__ __forceinline__ void tma_store_4d(const void* map, const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's bulk groups are pending: READ = 1
+// only until their shared-memory sources have been read (they may be
+// reused), READ = 0 until their writes are done
+template <int N, int READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // 16 bytes from global to shared; src_bytes = 0 fills them with zeros and
 // reads nothing (src must still be a valid address)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -206,6 +232,18 @@ __device__ __forceinline__ uint64_t desc_mn_sw128(const void* p, uint32_t group)
   return desc_kmajor(p, group, group) | (1ull << 62);  // layout type 1: 128-byte swizzle
 }
 
+// descriptor of a bf16 K-major operand in 128-byte swizzled rows at shared
+// address p: each row (of M or N) holds 64 K values in 128 bytes, its
+// 16-byte units XORed with the row's index mod 8, as TMA's SWIZZLE_128B
+// writes a box whose innermost extent is 128 bytes; groups of 8 rows 1024
+// bytes apart (SBO). The tile starts 1024-byte aligned; p may lie 32 k
+// bytes past that start to read K values 16 k .. 16 k + 15 (the swizzle is
+// applied to the address bits, so the step stays inside the row). The
+// leading byte offset is unused at this swizzle (set to 1, in 16 bytes).
+__device__ __forceinline__ uint64_t desc_kmajor_sw128(const void* p) {
+  return desc_kmajor(p, 16, 1024) | (1ull << 62);  // layout type 1: 128-byte swizzle
+}
+
 // d (+)= a * b: m64n64k16, bf16 inputs, A from registers, B by descriptor,
 // K-major (TRANS_B = 0) or MN-major (1); scale_d = 0 ignores d's contents
 template <int TRANS_B = 0>
@@ -223,6 +261,46 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (+)= a * b: m64n256k16, bf16 inputs, A and B both K-major by descriptor
+// (D: d[4j + 0..1] = (g, 8j + 2t..2t+1), d[4j + 2..3] = (g+8, ...), j =
+// 0..31); scale_d = 0 ignores d's contents
+__device__ __forceinline__ void wgmma_bf16_n256_ss(float (&d)[128], uint64_t a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+      "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // d (+)= a * b: m64n64k8, tf32 inputs (f32 bit patterns), A from registers,

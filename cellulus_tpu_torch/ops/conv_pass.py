@@ -23,12 +23,16 @@ intermediates in shared memory, at the square tile of at least
 ``FUSED_MIN_TILE`` that fits one block and that the kernel's cost model
 rates cheapest; and, for a pass where no such tile fits (the bottom pass of
 a 256-fmap model), the staged route, one launch per stage with the
-intermediates in device memory in the compute dtype. The plan is computed
-here from Python mirrors of the source's size and cost formulas
-(``chip_smoke.py`` holds them against the library's), so the CPU tests can
-check the route of every pass. Before each launch the wrapper packs the
-weights into the layout the kernel's ``wgmma`` reads from its ring
-(:func:`pack_stage`; float32 as tf32 hi and lo arrays), which the CPU
+intermediates in device memory in the compute dtype. In bfloat16 a staged
+stage is a persistent implicit GEMM of 128-pixel x 256-channel tiles
+(:func:`staged_plan` mirrors its plan); in float32 it keeps the square
+tile of the plan. The plan is computed here from Python mirrors of the
+source's size and cost formulas (``chip_smoke.py`` holds them against the
+library's, and a CPU test against a g++ build of the staged plan's lines),
+so the CPU tests can check the route of every pass. Before each launch the
+wrapper packs the weights into the layout the kernel's ``wgmma`` reads from
+its ring (:func:`pack_stage`, float32 as tf32 hi and lo arrays;
+:func:`pack_stage_persistent` for the bfloat16 staged route), which the CPU
 tests check too.
 """
 
@@ -40,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import kernels
+from ..utils.profiling import count
 
 # dynamic shared memory one block may use on Hopper (227 KB)
 MAX_SHARED_BYTES = 232448
@@ -50,7 +55,7 @@ FUSED_MIN_TILE = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_SIZES = (3, 1, 1, 3)
 
-# the staged route's output tile (one per stage)
+# the staged route's output tile in float32 (one per stage)
 STAGED_TILE = 16
 
 _SIGNATURES = {
@@ -65,6 +70,12 @@ _SIGNATURES = {
     "conv_pass_2d_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
     "conv_pass_2d_staged_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
     "conv_pass_2d_cost": ([ctypes.c_int] * 7, ctypes.c_longlong),
+    "conv_pass_2d_staged_plan": ([ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)],
+                                 ctypes.c_int),
+    "conv_pass_2d_stage_launch": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
 }
 
 # csrc/conv_pass.cu's Cfg<T> by element bytes: K rows per wgmma (kstep),
@@ -77,6 +88,18 @@ _CFG = {
 NB = 64  # wgmma N: the columns of one n-block
 _MAX_SLOTS = 4
 _BAR_BYTES = 128
+
+# csrc/conv_pass.cu's bf16 staged route (conv_stage_kernel_persistent):
+# tiles of GEMM_M output pixels x GEMM_N output channels, K in chunks of one
+# tap x GEMM_K input channels; a ring slot holds the chunk's A (one TMA box)
+# and B (one bulk copy of the pack), beside the epilogue's output tile
+GEMM_M, GEMM_N, GEMM_K = 128, 256, 64
+GEMM_A_BYTES = GEMM_M * GEMM_K * 2
+GEMM_B_BYTES = GEMM_N * GEMM_K * 2
+GEMM_SLOT_BYTES = GEMM_A_BYTES + GEMM_B_BYTES
+GEMM_OUT_BYTES = GEMM_M * GEMM_N * 2
+_GEMM_MAX_SLOTS = 8
+_GEMM_ALIGN = 1024
 
 
 def _ceil(a: int, b: int) -> int:
@@ -186,10 +209,52 @@ def fused_cost(c_in: int, c: int, th: int, tw: int, H: int, W: int, elem: int) -
     return _ceil(H - 4, th) * _ceil(W - 4, tw) * per_block
 
 
+def staged_plan(B: int, oh: int, ow: int, k: int, c_in: int, c: int) -> dict:
+    """Mirror of ``gemm_plan`` (``conv_pass_2d_staged_plan``), the bf16
+    staged route's plan of a ``k x k`` stage with an ``oh x ow`` output grid:
+    the box of 128 output pixels (``bh`` x ``bw``, ``bh`` in 1, 2, 4, 8; the
+    one that pads the grid least, the widest on a tie), the boxes over an
+    image and the batch, the 256-column n-tiles, the tiles the persistent
+    blocks walk, the 64-channel blocks of ``c_in`` and the chunks a tile
+    (taps x blocks), the ring's slots and the shared bytes (the ring, the
+    epilogue's output tile, the barriers and 1024 bytes of alignment slack)."""
+    area = {h: _ceil(oh, h) * h * _ceil(ow, GEMM_M // h) * (GEMM_M // h) for h in (1, 2, 4, 8)}
+    bh = min(area, key=lambda h: (area[h], h))
+    bw = GEMM_M // bh
+    tiles_y, tiles_x = _ceil(oh, bh), _ceil(ow, bw)
+    m_tiles, n_tiles = B * tiles_y * tiles_x, _ceil(c, GEMM_N)
+    n_cb = _ceil(c_in, GEMM_K)
+    fixed = _GEMM_ALIGN + GEMM_OUT_BYTES + 2 * _GEMM_MAX_SLOTS * 8
+    slots = min(_GEMM_MAX_SLOTS, (MAX_SHARED_BYTES - fixed) // GEMM_SLOT_BYTES)
+    return dict(bh=bh, bw=bw, tiles_y=tiles_y, tiles_x=tiles_x, m_tiles=m_tiles,
+                n_tiles=n_tiles, tiles=m_tiles * n_tiles, n_cb=n_cb, chunks=k * k * n_cb,
+                slots=slots, smem=fixed + slots * GEMM_SLOT_BYTES)
+
+
+def staged_tile(plan: dict, t: int):
+    """Mirror of ``gemm_tile``: ``(img, y0, x0, nt)`` of tile ``t`` of the
+    blocks' walk, the n-tiles of one m-tile neighbours."""
+    nt, m = t % plan["n_tiles"], t // plan["n_tiles"]
+    img, r = divmod(m, plan["tiles_y"] * plan["tiles_x"])
+    return img, (r // plan["tiles_x"]) * plan["bh"], (r % plan["tiles_x"]) * plan["bw"], nt
+
+
+def staged_tiles(shape, c_out: int) -> int:
+    """Output tiles the bf16 staged route computes for a pass of NHWC input
+    ``shape``: its four stages' ``staged_plan`` tiles."""
+    B, H, W, c_in = shape
+    stages = ((H - 2, W - 2, 3, c_in), (H - 2, W - 2, 1, c_out), (H - 2, W - 2, 1, c_out),
+              (H - 4, W - 4, 3, c_out))
+    return sum(staged_plan(B, oh, ow, k, ci, c_out)["tiles"] for oh, ow, k, ci in stages)
+
+
 def staged_smem_bytes(k: int, c_in: int, th: int, tw: int, elem: int) -> int:
     """Mirror of ``conv_pass_2d_staged_smem_bytes``: a block of the staged
-    route at a ``k x k`` stage with ``c_in`` input channels (barriers, its
-    output tile's staging area, the ring)."""
+    route at a ``k x k`` stage with ``c_in`` input channels; in float32 at a
+    ``th x tw`` output tile (barriers, its output tile's staging area, the
+    ring), in bfloat16 the persistent kernel's bytes, the same at every shape."""
+    if elem == 2:
+        return staged_plan(1, 1, 1, k, c_in, GEMM_N)["smem"]
     s = stage_geometry(k, c_in, th, tw, elem, stream_sb(k, c_in, elem))
     return _smem_total(_BAR_BYTES + _r128(th * tw * _pitch(NB, elem) * elem), s["slot_need"])
 
@@ -227,9 +292,39 @@ def pack_stage(w: torch.Tensor, sb: int = 0) -> torch.Tensor:
     return packed
 
 
+def sw128_units(n: int) -> torch.Tensor:
+    """``(n, 8)``: the 16-byte unit that row r's unit u occupies in a tile
+    of 128-byte rows laid out with the 128-byte swizzle, ``u ^ (r % 8)``
+    (TMA's SWIZZLE_128B, and the layout the kernel's K-major descriptors
+    name)."""
+    return torch.arange(8)[None, :] ^ (torch.arange(n)[:, None] % 8)
+
+
+def pack_stage_persistent(w: torch.Tensor) -> torch.Tensor:
+    """One stage's bf16 weights ``(k, k, c_in, c)`` packed for the bf16
+    staged route: ``(n_tiles, chunks, 256, 64)``, per 256-column n-tile and
+    chunk (tap c // n_cb, input channels 64 (c % n_cb) ..) the 256 output
+    columns' 64 K values each in a 128-byte row, K-major, its 16-byte units
+    swizzled (:func:`sw128_units`), so that a chunk is one contiguous 32 KB
+    copy that the wgmma descriptor reads as it lands. Channels past ``c_in``
+    and columns past ``c`` are zeros."""
+    k, _, c_in, c = w.shape
+    n_cb, n_t = _ceil(c_in, GEMM_K), _ceil(c, GEMM_N)
+    rows = F.pad(w.reshape(k * k, c_in, c), (0, n_t * GEMM_N - c, 0, n_cb * GEMM_K - c_in))
+    # (tap, block, k, n-tile, n) -> (n-tile, tap, block, n, unit, 8)
+    t = rows.reshape(k * k, n_cb, GEMM_K, n_t, GEMM_N).permute(3, 0, 1, 4, 2)
+    t = t.reshape(n_t, k * k * n_cb, GEMM_N, GEMM_K // 8, 8)
+    # unit s of row n holds the source unit s ^ (n % 8) (the XOR is its own inverse)
+    n = torch.arange(GEMM_N)[:, None]
+    packed = t[:, :, n, sw128_units(GEMM_N)]
+    return packed.reshape(n_t, k * k * n_cb, GEMM_N, GEMM_K).contiguous()
+
+
 def pack_pass(weights, route: str, c_in: int, c: int) -> list:
     """The four stages' weights packed for ``route`` (compute dtype)."""
     elem = weights[0].element_size()
+    if route == "staged" and elem == 2:
+        return [pack_stage_persistent(w) for w in weights]
     if route == "fused":
         sbs = [stream_sb(3, c_in, elem) if fused_streams(c_in, elem) else 0, 0, 0, 0]
     else:
@@ -301,7 +396,9 @@ def conv_pass_2d_plan(shape, c_out: int, compute_dtype):
     block and that the cost model rates cheapest (the larger one on a tie);
     where none fits, ``("staged", t)``, the largest staged tile whose four
     stages fit, if the channels allow it; else the cheapest smaller fused
-    tile. Raise ``ValueError`` when no route takes the shape."""
+    tile. Raise ``ValueError`` when no route takes the shape. (bfloat16's
+    staged stages fit at every tile and take their own 128-pixel tiles,
+    :func:`staged_plan`: ``t`` is then ``STAGED_TILE`` and unused.)"""
     elem = torch.tensor([], dtype=compute_dtype).element_size()
     _, H, W, c_in = shape
     fits = [t for t in TILE_CANDIDATES
@@ -330,6 +427,14 @@ def conv_pass_2d_design(shape, c_out: int, compute_dtype) -> str:
     """The kernel's design for an NHWC input of ``shape`` (``csrc/conv_pass.cu``):
     its wgmma, route and output tile."""
     route, tile = conv_pass_2d_plan(shape, c_out, compute_dtype)
+    if route == "staged" and compute_dtype == torch.bfloat16:
+        B, H, W, c_in = shape
+        boxes = "/".join(sorted({f"{p['bh']}x{p['bw']}" for p in (
+            staged_plan(B, H - 2, W - 2, 3, c_in, c_out),
+            staged_plan(B, H - 4, W - 4, 3, c_out, c_out))}))
+        return (f"wgmma m64n256k16 bf16, A and B from 128-byte swizzled shared memory, staged, "
+                f"one persistent launch a stage, {GEMM_M}-pixel ({boxes} box) x {GEMM_N}-channel "
+                f"tiles, 2 consumer warpgroups and a producer warp")
     mma = ("wgmma m64n64k16 bf16" if compute_dtype == torch.bfloat16
            else "wgmma m64n64k8 3xTF32")
     where = "fused" if route == "fused" else "staged, one launch a stage"
@@ -416,4 +521,6 @@ def _(x, w0, w1, w2, w3, b0, b1, b2, b3, compute_dtype):
             )
     kernels.check_launch(rc, "conv_pass_2d")
     kernels.count_launch(conv_pass_2d)
+    if route == "staged" and compute_dtype == torch.bfloat16:
+        count("k1.staged_tiles", staged_tiles(x.shape, c_out))
     return out

@@ -14,7 +14,10 @@ Phases, each failing the run (non-zero exit) if it fails:
    ``[K1-wide]``: the wrapper's Python mirrors of the kernel's size and cost
    formulas against the library's, and K1 at the passes of
    ``examples/real-data``'s 256-fmap model (tile batch 16), whose bottom
-   pass takes the staged route; then ``[K1-ragged]``: the same checks at
+   pass takes the staged route (in bf16 the persistent implicit GEMM: the
+   ptxas report of ``conv_stage_kernel_persistent``, which must show no
+   spill and no serialised wgmma, and each of its four stages timed beside
+   its bound); then ``[K1-ragged]``: the same checks at
    ragged and narrow shapes (partial edge tiles, 24 and 72 channels, three
    input channels, B = 1);
 4. K2, the 3x3 filter gradient: the kernel against its plain version at the
@@ -172,6 +175,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import importlib.util
 import json
@@ -569,6 +573,101 @@ def phase_k1_plans():
                     n += 1
     print(f"[K1-wide] the wrapper's mirrors of the size and cost formulas equal the library's "
           f"at {n} (pass, type, tile) cases of the 64- and 256-fmap models", flush=True)
+    buf = (ctypes.c_longlong * 11)()
+    keys = ("bh", "bw", "tiles_y", "tiles_x", "m_tiles", "n_tiles", "tiles", "n_cb", "chunks",
+            "slots", "smem")
+    cases = [(B, s, s, k, ci, 768) for B in (1, K1_WIDE_BATCH, 128)
+             for s, k, ci in ((122, 3, 256), (122, 1, 768), (120, 3, 768))]
+    cases += [(1, 33, 37, 3, 24, 72), (2, 41, 41, 3, 96, 24), (1, 62, 62, 3, 256, 4640)]
+    for c in cases:
+        lib.conv_pass_2d_staged_plan(*c, buf)
+        want = conv_pass.staged_plan(*c)
+        if list(buf) != [want[k] for k in keys]:
+            fail(f"K1 staged plan mirror differs from the library at {c}: library {list(buf)}, "
+                 f"mirror {want}")
+    print(f"[K1-wide] the bf16 staged route's plan mirror equals the library's at {len(cases)} "
+          f"stage shapes", flush=True)
+
+
+def ptxas_entry(log, symbol):
+    """The ptxas report (``-Xptxas -v``) of the kernel whose mangled name
+    holds ``symbol``: ``{"registers", "spill_stores", "spill_loads",
+    "serialized"}``, the last the C7512 notes naming it; None if the log has
+    no entry for it (a library built by an earlier process)."""
+    entry, found = None, None
+    serialized = [line for line in log.splitlines() if "C7512" in line and symbol in line]
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry is None or symbol not in entry:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            found = {"spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))}
+        m = re.search(r"Used (\d+) registers", line)
+        if m and found is not None:
+            found.update(registers=int(m.group(1)), serialized=serialized)
+            return found
+    return None
+
+
+def phase_k1_staged(device, batch=K1_WIDE_BATCH):
+    """The bf16 staged route of the 256-fmap bottom pass: the persistent
+    kernel's ptxas report (no spill, no wgmma serialised), then each of the
+    four stages launched alone at tile batch ``batch``, against its plain
+    stage and timed beside its bound. Returns the stages' rows."""
+    log = kernels.BUILD_LOG.get("conv_pass")
+    rep = ptxas_entry(log, "conv_stage_kernel_persistent") if log else None
+    if rep is None:
+        print("[K1-wide] conv_stage_kernel_persistent: no ptxas report (library built earlier)")
+    else:
+        print(f"[K1-wide] ptxas conv_stage_kernel_persistent: {rep['registers']} registers, "
+              f"spill stores {rep['spill_stores']} B, spill loads {rep['spill_loads']} B, "
+              f"C7512 {'yes' if rep['serialized'] else 'no'}", flush=True)
+        if rep["spill_stores"] or rep["spill_loads"] or rep["serialized"]:
+            fail(f"conv_stage_kernel_persistent: ptxas spills or serialises its wgmmas: {rep}")
+    lib = kernels.load("conv_pass", conv_pass._SIGNATURES)
+    (_, (_, H, W, c_in), c_out), = [p for p in pass_shapes(1, MODEL_WIDE) if p[0] == "bottom"]
+    gen = torch.Generator().manual_seed(4)
+    rows = []
+    for i, (k, ci, h) in enumerate(((3, c_in, H), (1, c_out, H - 2), (1, c_out, H - 2),
+                                    (3, c_out, H - 2))):
+        x = torch.rand((batch, h, h, ci), generator=gen).to(device).bfloat16()
+        w = (torch.randn((k, k, ci, c_out), generator=gen) / math.sqrt(k * k * ci)).to(device)
+        b = ((torch.rand((c_out,), generator=gen) * 2 - 1) / math.sqrt(k * k * ci)).to(device)
+        packed = conv_pass.pack_stage_persistent(w.bfloat16())
+        out = torch.empty((batch, h - k + 1, h - k + 1, c_out), dtype=torch.bfloat16,
+                          device=device)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run():
+            kernels.check_launch(lib.conv_pass_2d_stage_launch(
+                x.data_ptr(), packed.data_ptr(), b.data_ptr(), out.data_ptr(), batch, h, h, k,
+                ci, c_out, stream), "conv_pass_2d stage")
+
+        run()
+        ref = torch.relu(torch.nn.functional.conv2d(
+            x.float().permute(0, 3, 1, 2), w.bfloat16().float().permute(3, 2, 0, 1), b))
+        ref = ref.bfloat16().permute(0, 2, 3, 1)
+        err = float((out.float() - ref.float()).abs().max())
+        atol = 2e-2 * float(ref.float().abs().max())
+        if not err <= atol:
+            fail(f"[K1-wide] bottom stage {i + 1}: max abs err {err:.3g} > {atol:.3g}")
+        ms = cuda_ms(run, reps=10)
+        flops = 2 * batch * (h - k + 1) ** 2 * k * k * ci * c_out
+        nbytes = 2 * (x.numel() + out.numel() + w.numel()) + 4 * c_out
+        bound_ms = 1e3 * max(flops / PEAK_OPS[torch.bfloat16], nbytes / HBM_BYTES_PER_S)
+        plan = conv_pass.staged_plan(batch, h - k + 1, h - k + 1, k, ci, c_out)
+        print(f"[K1-wide] bottom stage {i + 1} {k}x{k} {ci}->{c_out} at {h}^2 "
+              f"({plan['bh']}x{plan['bw']} boxes, {plan['tiles']} tiles of {plan['chunks']} "
+              f"chunks): max_abs_err {err:.3g} (atol {atol:.3g}); {ms:.3f} ms, bound "
+              f"{bound_ms:.3f} ms, {100 * bound_ms / ms:.1f}% of it", flush=True)
+        rows.append({"stage": i + 1, "ms": ms, "bound_ms": bound_ms, "max_abs_err": err})
+        del x, out, ref
+    torch.cuda.empty_cache()
+    return rows
 
 
 def dw_shapes(batch, in_channels=1, model=MODEL, crop=CROP):
@@ -4130,6 +4229,7 @@ def main() -> None:
     phase_k1_plans()
     clock("K1 plans")
     k1_wide = phase_conv_pass(device, MODEL_WIDE, K1_WIDE_BATCH, "K1-wide")
+    phase_k1_staged(device)
     clock("K1-wide")
     phase_k1_ragged(device)
     clock("K1-ragged")

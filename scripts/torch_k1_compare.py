@@ -3,16 +3,18 @@ design of it in one process on one GPU, pass by pass.
 
     git archive <commit> cellulus_tpu_torch/csrc cellulus_tpu_torch/ops/conv_pass.py \\
         | tar -x -C .archive/k1_old
-    python3 scripts/torch_k1_compare.py --old .archive/k1_old [--reps 3]
+    python3 scripts/torch_k1_compare.py --old .archive/k1_old [--reps 3] \
+        [--models K1,K1-wide] [--dtypes float32,bfloat16]
 
 ``--old`` holds the earlier commit's ``cellulus_tpu_torch/csrc/conv_pass.cu``
 (with the headers it includes) and ``cellulus_tpu_torch/ops/conv_pass.py``;
 the directory should be one that ``.gitignore`` lists. Its kernel is built
 with the package's ``nvcc`` flags into ``build/k1_old/`` and launched with the
-tile its own plan picks, on weights in the compute dtype laid out
-``(kh, kw, cin, C)`` (that design's interface). At every pass of ``[K1]``
-(64 fmaps, tile batch 128) and ``[K1-wide]`` (256 fmaps, tile batch 16) of
-``chip_smoke.py``, in float32 (TF32 off) and bfloat16, both kernels are held
+tile its own plan picks, on weights packed by its own ``pack_pass`` where it
+has one, else in the compute dtype laid out ``(kh, kw, cin, C)``. At every
+pass of ``[K1]`` (64 fmaps, tile batch 128) and ``[K1-wide]`` (256 fmaps,
+tile batch 16) of ``chip_smoke.py`` (or those ``--models`` names), in
+float32 (TF32 off) and bfloat16 (or ``--dtypes``), both kernels are held
 against the plain version with ``chip_smoke.py``'s tolerances and timed in
 turns (earlier, current, current, earlier), beside cuDNN (``F.conv2d`` x 4)
 and the bound. Prints one line per pass and per tile-batch sum, and writes
@@ -62,6 +64,7 @@ def load_old(old: Path):
     text = (old / "cellulus_tpu_torch" / "ops" / "conv_pass.py").read_text()
     text = text[: text.index("\ndef conv_pass_2d(\n")]
     text = text.replace("from ..utils import kernels", "kernels = None")
+    text = text.replace("from ..utils.profiling import count", "count = None")
     plan = types.ModuleType("conv_pass_old")
     exec(compile(text, "conv_pass_old.py", "exec"), plan.__dict__)
     for fn, (argtypes, restype) in plan._SIGNATURES.items():
@@ -77,6 +80,8 @@ def old_pass(lib, plan, x, params, dtype):
     route, tile = plan.conv_pass_2d_plan(x.shape, c_out, dtype)
     x = x.to(dtype).contiguous()
     ws = [params[f"conv{i}"]["w"].to(dtype).contiguous() for i in range(4)]
+    if hasattr(plan, "pack_pass"):
+        ws = plan.pack_pass(ws, route, c_in, c_out)
     bs = [params[f"conv{i}"]["b"].float().contiguous() for i in range(4)]
     out = torch.empty((B, H - 4, W - 4, c_out), dtype=dtype, device=x.device)
     args = [x.data_ptr()]
@@ -109,7 +114,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", type=Path, required=True)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--models", default="K1,K1-wide")
+    ap.add_argument("--dtypes", default="float32,bfloat16")
     args = ap.parse_args()
+    models, dtypes = args.models.split(","), args.dtypes.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("torch_k1_compare: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
@@ -125,7 +133,9 @@ def main():
     rows, failed = [], []
     for model, batch, tag in ((smoke.MODEL, smoke.TILE_BATCH * 2 * smoke.NUM_INFER_ITERATIONS,
                                "K1"), (smoke.MODEL_WIDE, smoke.K1_WIDE_BATCH, "K1-wide")):
-        for dtype in (torch.float32, torch.bfloat16):
+        if tag not in models:
+            continue
+        for dtype in [getattr(torch, d) for d in dtypes]:
             for name, shape, c_out in smoke.pass_shapes(batch, model):
                 params = smoke._pass_params(shape[-1], c_out, gen, dev)
                 x = torch.rand(shape, generator=gen).to(dev)
@@ -164,8 +174,8 @@ def main():
                 del x
                 torch.cuda.empty_cache()
     sums = []
-    for tag in ("K1", "K1-wide"):
-        for dt in ("float32", "bfloat16"):
+    for tag in models:
+        for dt in dtypes:
             sel = [r for r in rows if r["model"] == tag and r["dtype"] == dt]
             s = {k: sum(r[k] for r in sel) for k in ("old_ms", "new_ms", "cudnn_ms", "bound_ms")}
             s.update(model=tag, dtype=dt)

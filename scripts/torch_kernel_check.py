@@ -20,8 +20,9 @@ K1's fused route through its C entry point at every square tile of 6 or more tha
 (``tiles-wide``: at the 256-fmap model's passes), with the cost its
 tile choice assigns, to see how the tile size sets its speed; every tile must
 give the bits of the tile the wrapper picks. ``wide`` is ``[K1-wide]``:
-the plan mirrors against the library and K1 at the passes of
-``examples/real-data``'s model. ``greedy`` clusters synthetic blob
+the plan mirrors against the library, K1 at the passes of
+``examples/real-data``'s model and its bf16 staged bottom pass stage by
+stage. ``greedy`` clusters synthetic blob
 embeddings (512^2 and 128^3) on the card, timed, against the CPU.
 Exits non-zero on a failure.
 """
@@ -147,6 +148,7 @@ def main() -> None:
     if what == "wide":
         smoke.phase_k1_plans()
         smoke.phase_conv_pass(device, smoke.MODEL_WIDE, smoke.K1_WIDE_BATCH, "K1-wide")
+        smoke.phase_k1_staged(device)
     if what == "greedy":
         greedy_check(device)
 

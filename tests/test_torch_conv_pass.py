@@ -162,6 +162,31 @@ def test_plan_of_every_pass_of_the_example_widths(toml):
                            for k, ci in ((3, c_in), (1, c_out), (3, c_out))) <= MAX_SHARED_BYTES
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_of_every_pass_of_the_benchmark_configuration(dtype):
+    """The benchmark's 2D configuration (``portbench/configs/cellulus-2d-f256
+    .json``: 256 fmaps, x3, 252^2 tiles, a TTA tile batch of 128 copies)
+    takes the routes and tiles of examples/real-data's model: down fused,
+    bottom staged, up fused."""
+    import json
+    from pathlib import Path
+
+    from cellulus_tpu_torch.models.geometry import conv_pass_inputs
+    from cellulus_tpu_torch.ops.conv_pass import conv_pass_2d_plan
+
+    config = json.loads((Path(__file__).resolve().parents[1] / "portbench" / "configs"
+                         / "cellulus-2d-f256.json").read_text())
+    m, infer = config["model"], config["infer"]
+    passes = conv_pass_inputs(infer["crop_size"], m["downsampling_factors"], m["in_channels"],
+                              m["num_fmaps"], m["fmap_inc_factor"], m["features_in_last_layer"])
+    expected = _EXAMPLE_PLANS["real-data"]
+    assert [p[0] for p in passes] == list(expected)
+    batch = infer["tile_batch_size"] * 2 * infer["num_infer_iterations"]
+    for name, size, c_in, c_out in passes:
+        assert conv_pass_2d_plan((batch, *size, c_in), c_out, dtype) == \
+            expected[name][str(dtype)[6:]], name
+
+
 def test_a_pass_no_route_takes_raises():
     """Channels that neither fit a fused tile nor stream in the staged
     route's slices raise; the pass is never handed to a library. With the

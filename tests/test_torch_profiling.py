@@ -350,3 +350,19 @@ def test_profile_env_prints_the_counters(blob_container_2d, tmp_path, monkeypatc
     assert "; counters k3.fits 1, k3.iterations_max " in line
     assert profiling.counters()["k3.points"] == 64
     reset_perf()
+
+
+def test_every_counter_of_the_port_is_in_the_readme():
+    """Each counter the port counts (``count("<name>", ...)`` in its
+    sources: K3's fits, K1's staged tiles) is named in the README's
+    profiling paragraph, where an operator reads ``maybe_trace``'s line."""
+    import re
+    from pathlib import Path
+
+    root = Path(cellulus_tpu_torch.__file__).resolve().parent
+    names = set()
+    for src in root.rglob("*.py"):
+        names |= set(re.findall(r'\bcount\(\s*"([a-z0-9_.]+)"', src.read_text()))
+    assert {"k1.staged_tiles", "k3.fits", "k3.iterations_max"} <= names
+    readme = (root.parent / "README.md").read_text()
+    assert not [n for n in sorted(names) if f"`{n}`" not in readme]
