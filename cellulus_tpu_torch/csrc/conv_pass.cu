@@ -113,49 +113,93 @@
 // pixel and are not stored; k rows past the stage's K read pixel 0 against
 // zero weight rows.
 //
-// The bf16 staged route (conv_stage_kernel_persistent) is a persistent
-// implicit GEMM per K x K stage, for the 256 -> 768 channel bottom pass of a
-// 256-fmap model, where no fused tile fits. Its stages are large plain
-// GEMMs (M = B x 122^2 pixels, N = 768, K = 9 x 256, 768, 768, 9 x 768;
-// about 1,750 FLOP a byte even with the intermediates in device memory), so
-// operations bound them; the earlier 16 x 16 x 64-column block read each
-// input slice again for every 64 output columns, fed A from registers
-// (wgmma serialised, C7512) and paid each block's ring fill and epilogue
-// alone, about 26% of the bound. Now:
+// The bf16 staged route takes every bf16 pass where its cost model rates it
+// faster than the fused tile (all passes of the 64- and 256-fmap models):
+// one launch a stage, the intermediates in device memory in bf16 (the
+// rounding points stay those of conv_pass_2d_plain). Its stages are large
+// implicit GEMMs (the 256-fmap model at the cell's 128 copies of a 252^2
+// tile: M = 128 x 250^2 / 122^2 / 238^2 pixels, K up to 9 x 1,024), so
+// operations bound the 3x3 stages; the 1x1 stages of the 256-wide `down`
+// pass (250^2 x 256 in and out, 32 MB a copy each way) and the 64-wide ones
+// are bound by their bytes, 3.35 TB/s. Its kernels:
+//
+// (a) conv_stage_kernel_persistent<256> (C > 64; the bottom pass and `down`
+//     after its first stage). The earlier 16 x 16 x
+//     64-column block read each input slice again for every 64 output
+//     columns, fed A from registers (wgmma serialised, C7512) and paid each
+//     block's ring fill and epilogue alone, about 26% of the bound. Now:
 //   - a tile is 128 output pixels (a box of bh x bw, the one that pads the
-//     grid least: 1 x 128 at the 122- and 120-wide grids) x 256 output
-//     channels; two consumer warpgroups each issue wgmma m64n256k16 on 64
-//     of its pixels (128 f32 accumulators a thread), one group in flight,
-//     so each fetched input slice feeds 4x the columns it did;
+//     grid least: 1 x 128 at the 122-, 120-, 250- and 248-wide grids) x
+//     256 output channels; two consumer warpgroups each issue wgmma
+//     m64n256k16 on 64 of its pixels (128 f32 accumulators a thread), one
+//     group in flight;
 //   - both operands come from shared memory by descriptor, K-major in
 //     128-byte swizzled rows: A for tap (dy, dx) and 64 input channels is
 //     one TMA box of the NHWC input at (c0, x0 + dx, y0 + dy, image), whose
 //     128-byte swizzled layout is the descriptor's and whose zero fill
-//     takes the image edge (tiled boxes, not TMA's im2col mode: the
-//     4D tiled map the kernels already use, at 5-6% padded rows on the
-//     bottom pass's grids); B is a chunk of the weights packed once a call
-//     (ops/conv_pass.py pack_stage_persistent) into that layout, one 32 KB
-//     bulk copy into the same slot;
+//     takes the image edge (tiled boxes, not TMA's im2col mode); B is a
+//     chunk of the weights packed once a call (ops/conv_pass.py
+//     pack_stage_persistent) into that layout, one 32 KB bulk copy into
+//     the same slot;
 //   - a ring of 3 slots of 48 KB beside the 64 KB output tile, on full
-//     and empty mbarriers, fed by one producer warp (288 threads, so
-//     ptxas may give each thread up to 224 registers without setmaxnreg);
+//     and empty mbarriers, fed by one producer warp (288 threads);
 //   - one block an SM walks the tiles with the n-tiles of an m-tile
-//     neighbours (its input leaves device memory once; a stage's weights,
-//     at most 10.6 MB, stay in L2); each tile's epilogue (f32 bias, ReLU,
-//     one rounding to bf16, conflict-free into swizzled shared memory, then
-//     four TMA stores clipped at the output's edge) overlaps the producer's
-//     loads of the next tile.
-// At 87 FLOP a byte of L2 traffic a chunk, the 3x3 stages reached 75-78% of
-// the tensor cores' peak on the H100 and the 1x1 stages 57% (PERF.md), so
-// L2 feeds the ring without a cluster multicasting B.
+//     neighbours (a stage's weights, at most 10.6 MB, stay in L2), the 9
+//     taps of a 64-channel block in turn; each tile's epilogue (f32 bias,
+//     ReLU, one rounding to bf16, conflict-free into swizzled shared
+//     memory, then TMA stores clipped at the output's edge) overlaps the
+//     producer's loads of the next tile.
+//   Bound: at 87 FLOP a byte of L2 traffic a chunk (48 KB for 4.19
+//   MFLOP), L2 feeds the ring at 75-78% of the tensor cores' peak on the
+//   3x3 stages (measured, PERF.md); the 1x1 stages reach 57% (768 wide) or
+//   their byte bound (256 wide, 74%).
+// (b) conv_stage_kernel_persistent<64> (C <= 64: the up passes, the 64-fmap
+//     model's down pass). A 64-column n-block was the fused route's only
+//     width: there `up`'s 3x3 1,024 -> 64 stage (K = 9,216) ran as one
+//     narrow n-block, A from registers, at about 19% of its bound. Here:
+//   - a tile is two rows of 128 output pixels x 64 channels; wgmma puts the
+//     pixels on N, m64n128k16 with the 64 output channels' weights as A and
+//     a warpgroup's row of 128 pixels as B (64 accumulators a thread), so
+//     the instruction is as wide as the stage allows;
+//   - a chunk is one tap row dy x 64 input channels: the TMA box of the
+//     two rows is K - 1 pixels wider than the tile (130 x 2 pixels, 33 KB)
+//     and each tap dx reads it from its pixel dx on (a descriptor start one
+//     or two 128-byte rows into the swizzle's period: the XOR is taken on
+//     the address bits as TMA wrote them, base offset 0); its weights are
+//     the tap row's three 8 KB chunks of the pack, one 24 KB bulk copy. So
+//     an input slice leaves L2 once for 3 taps: 57 KB of a slot for 6.3
+//     MFLOP, 110 FLOP a byte (a tap a chunk was 52 and ran at 40% of the
+//     bound, L2-bound);
+//   - 3 slots of 57 KB beside the 32 KB output tile (4 of 40 KB at 1x1);
+//     the epilogue writes the transposed results pixel-major into the
+//     swizzled staging tiles, then TMA stores as (a).
+//   Bound: 3x3 stages at 62-68% of the tensor cores' peak (1,024 -> 64 at
+//   66%), 1x1 stages at 75-86% of their byte bound (PERF.md).
+// (c) conv_stage_kernel_first (cin % 8 != 0: the first stage of a one- or
+//     three-channel image, 3x3 only), on the CUDA cores: 9 x cin K values
+//     would fill a 64-channel chunk to a ninth or less (64x the work at cin
+//     = 1), and TMA cannot stride the input. A thread computes 4 pixels of
+//     a row x 8 channels from f32 weights in shared memory, reading each
+//     input pixel of a tap row once for the three taps dx. Bound: its
+//     output's bytes (32 MB a 250^2 copy at 256 channels); it runs at 46%
+//     of that, about 7 FMA a picosecond (PERF.md).
+//
+// Where the bytes of the intermediates go: the 256-fmap `down` pass writes
+// and reads three 250^2 x 256 bf16 intermediates, 24.6 GB at the cell's 128
+// copies (7.3 ms at 3.35 TB/s) against the 11.5 ms its FLOPs need at peak;
+// the fused route held them in shared memory but recomputed a 12 x 12 halo
+// for every 10 x 10 output tile and padded 100 pixels to 128 (1.9x the work
+// of its 1x1 stages). conv_pass_2d_plan weighs the two with the cost model
+// between the "K1 staged plan" markers, calibrated on the H100.
 //
 // Registers and spills (nvcc -Xptxas -v, CUDA 12.8, as chip_smoke.py
-// prints them at its build): every kernel 168 registers a thread;
-// conv_pass_kernel and conv_stage_kernel 2 named barriers, spill stores /
-// loads in bytes: conv_pass_kernel<bf16> 176 / 256, conv_pass_kernel<float>
-// 1,180 / 2,388, conv_stage_kernel<float> none; ptxas reports the wgmmas
-// of conv_pass_kernel<bf16> serialised for register resources (C7512).
-// conv_stage_kernel_persistent: no spill, no C7512.
+// prints them at its build): conv_pass_kernel and conv_stage_kernel 168
+// registers a thread, 2 named barriers, spill stores / loads in bytes:
+// conv_pass_kernel<bf16> 176 / 256, conv_pass_kernel<float> 1,180 / 2,388,
+// conv_stage_kernel<float> none; ptxas reports the wgmmas of
+// conv_pass_kernel<bf16> serialised for register resources (C7512).
+// conv_stage_kernel_persistent<256> 168 registers, <64> 128,
+// conv_stage_kernel_first 95: no spill, no C7512.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -227,65 +271,89 @@ __host__ __device__ constexpr int wrow() {
 }
 
 // ---- K1 staged plan begin: plain C++ (the CPU tests build it with g++) ---
-// The bf16 staged route (conv_stage_kernel_persistent): tiles of 128 output
-// pixels, a box of bh x bw (bh = 1, 2, 4 or 8), x 256 output channels; K
-// in chunks of one tap x 64 input channels.
-constexpr int kGemmM = 128, kGemmN = 256, kGemmK = 64;
-constexpr int kGemmABytes = kGemmM * kGemmK * 2;  // one TMA box of the input, 16 KB
-constexpr int kGemmBBytes = kGemmN * kGemmK * 2;  // one bulk copy of the weights, 32 KB
-constexpr int kGemmSlotBytes = kGemmABytes + kGemmBBytes;
-constexpr int kGemmOutBytes = kGemmM * kGemmN * 2;  // the epilogue's output tile
+// The bf16 staged route, one launch a stage. A K x K stage whose input
+// channels TMA can stride (cin % 8 == 0) is a persistent implicit GEMM
+// (conv_stage_kernel_persistent<BN>): tiles of BM output pixels, a box of
+// bh x bw, x BN output channels. BN = 256 (C > 64): BM = 128, bh = 1, 2, 4
+// or 8, K in chunks of one tap x 64 input channels. BN = 64 (C <= 64): BM
+// = 256 as two rows of 128, K in chunks of one tap row dy x 64 input
+// channels, the input box K - 1 pixels wider than the tile so that its K
+// taps dx read it shifted. A stage of fewer input channels (the first stage
+// of a one-channel image) runs on the CUDA cores (conv_stage_kernel_first).
+constexpr int kGemmK = 64;
 constexpr int kGemmMaxSlots = 8;
 constexpr int kGemmAlign = 1024;  // the 128-byte swizzle's period
 constexpr long long kGemmSmemLimit = 232448;
 
+__host__ __device__ constexpr int gemm_bm(int bn) { return bn == 64 ? 256 : 128; }
+__host__ __device__ constexpr int gemm_out_bytes(int bn) { return gemm_bm(bn) * bn * 2; }
+__host__ __device__ inline int gemm_bn(int C) { return C <= 64 ? 64 : 256; }
+
 struct GemmPlan {
-  int bh, bw;                   // the box of 128 output pixels
+  int bm, bn;                   // the tile: bm output pixels x bn output channels
+  int bh, bw;                   // the box of bm output pixels
   int tiles_y, tiles_x;         // boxes over one output image
   long long m_tiles;            // boxes over the batch
-  int n_tiles;                  // 256-column tiles of C
+  int n_tiles;                  // bn-column tiles of C
   long long tiles;              // m_tiles x n_tiles, the blocks' walk
-  int n_cb, chunks;             // 64-channel blocks of cin; chunks a tile (K x K x n_cb)
+  int n_cb, chunks;             // 64-channel blocks of cin; chunks a tile
+  int taps;                     // taps a chunk: K (BN = 64) or 1
+  int box_w;                    // the input box's width: bw + taps - 1
+  int a_tx, a_bytes, b_bytes;   // a chunk's input box (its bytes; its room, 1024-aligned), weights
   int slots;                    // ring slots of A and B
   long long smem;               // dynamic shared bytes, the alignment's slack included
 };
 
 __host__ __device__ inline int gemm_cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// The box is the one that pads the output grid least (the widest on a tie).
-// The ring takes what shared memory leaves beside the output tile, the
-// barriers and the alignment's slack.
+// The box is the one that pads the output grid least (the widest on a tie;
+// two rows of 128 at BN = 64). The ring takes what shared memory leaves
+// beside the output tile, the barriers and the alignment's slack.
 __host__ __device__ inline GemmPlan gemm_plan(int B, int oh, int ow, int K, int cin, int C) {
   GemmPlan p;
+  p.bn = gemm_bn(C);
+  p.bm = gemm_bm(p.bn);
   long long best = -1;
-  p.bh = 1;
-  for (int bh = 1; bh <= 8; bh *= 2) {
-    const int bw = kGemmM / bh;
-    const long long area = (long long)gemm_cdiv(oh, bh) * bh * gemm_cdiv(ow, bw) * bw;
-    if (best < 0 || area < best) {
-      best = area;
-      p.bh = bh;
+  p.bh = 2;
+  if (p.bn == 256)
+    for (int bh = 1; bh <= 8; bh *= 2) {
+      const int bw = p.bm / bh;
+      const long long area = (long long)gemm_cdiv(oh, bh) * bh * gemm_cdiv(ow, bw) * bw;
+      if (best < 0 || area < best) {
+        best = area;
+        p.bh = bh;
+      }
     }
-  }
-  p.bw = kGemmM / p.bh;
+  p.bw = p.bm / p.bh;
   p.tiles_y = gemm_cdiv(oh, p.bh);
   p.tiles_x = gemm_cdiv(ow, p.bw);
   p.m_tiles = (long long)B * p.tiles_y * p.tiles_x;
-  p.n_tiles = gemm_cdiv(C, kGemmN);
+  p.n_tiles = gemm_cdiv(C, p.bn);
   p.tiles = p.m_tiles * p.n_tiles;
   p.n_cb = gemm_cdiv(cin, kGemmK);
-  p.chunks = K * K * p.n_cb;
-  const long long fixed = kGemmAlign + kGemmOutBytes + 2 * kGemmMaxSlots * 8;
-  const long long s = (kGemmSmemLimit - fixed) / kGemmSlotBytes;
+  p.taps = p.bn == 64 ? K : 1;
+  p.chunks = K * K * p.n_cb / p.taps;
+  p.box_w = p.bw + p.taps - 1;
+  p.a_tx = p.bh * p.box_w * kGemmK * 2;
+  p.a_bytes = gemm_cdiv(p.a_tx, kGemmAlign) * kGemmAlign;
+  p.b_bytes = p.taps * p.bn * kGemmK * 2;
+  const long long slot = p.a_bytes + p.b_bytes;
+  const long long fixed = kGemmAlign + gemm_out_bytes(p.bn) + 2 * kGemmMaxSlots * 8;
+  const long long s = (kGemmSmemLimit - fixed) / slot;
   p.slots = (int)(s < kGemmMaxSlots ? s : kGemmMaxSlots);
-  p.smem = fixed + (long long)p.slots * kGemmSlotBytes;
+  p.smem = fixed + (long long)p.slots * slot;
   return p;
 }
 
 // Tile t of the walk: the n-tiles of one m-tile are neighbours, so that
 // blocks running together share its input in L2 and it leaves device
 // memory once; every weight tile of a stage (at most 10.6 MB at C = 768)
-// stays in L2. Chunk c of a tile is tap c / n_cb, channels 64 (c % n_cb).
+// stays in L2. The taps of a 64-channel block follow each other, so that
+// the input rows they share are read from L2, not device memory (a tile's
+// taps of all 1,024 channels, 1.6 MB at the up pass's 256 x 64 tiles,
+// would not stay there across 132 SMs): chunk c of a tile is channels 64
+// (c / (K x K)) at tap c % (K x K) (BN = 256), or channels 64 (c / K) at
+// tap row c % K, its K taps dx (BN = 64).
 __host__ __device__ inline void gemm_tile(const GemmPlan& p, long long t, int& img, int& y0,
                                           int& x0, int& nt) {
   nt = (int)(t % p.n_tiles);
@@ -295,6 +363,79 @@ __host__ __device__ inline void gemm_tile(const GemmPlan& p, long long t, int& i
   const int r = (int)(m - img * per_img);
   y0 = (r / p.tiles_x) * p.bh;
   x0 = (r % p.tiles_x) * p.bw;
+}
+
+// The CUDA-core stage: blocks of kFirstThreads threads, a thread taking
+// kFirstPix neighbouring output pixels of a row x 8 output channels (one
+// 16-byte store a pixel), the f32 weights in shared memory.
+constexpr int kFirstThreads = 256, kFirstPix = 4;
+
+struct FirstPlan {
+  int groups;       // 8-channel groups of C: the threads of one pixel group
+  int per_block;    // pixel groups a block takes at once
+  long long items;  // pixel groups of the batch: kFirstPix pixels of a row
+  long long smem;   // the weights, K * K * cin * C floats
+};
+
+__host__ __device__ inline FirstPlan first_plan(int B, int oh, int ow, int K, int cin, int C) {
+  FirstPlan p;
+  p.groups = C / 8;
+  p.per_block = p.groups > 0 ? kFirstThreads / p.groups : 0;
+  p.items = (long long)B * oh * gemm_cdiv(ow, kFirstPix);
+  p.smem = 4LL * K * K * cin * C;
+  return p;
+}
+
+// Whether the bf16 staged route takes a pass of cin -> C channels: every
+// stage's output TMA-strided (C % 8 == 0), and the first stage on the
+// persistent kernel (cin % 8 == 0) or on the CUDA cores (its weights in
+// shared memory, a pixel's channel groups within a block).
+__host__ __device__ inline bool staged_takes(int cin, int C) {
+  if (C % 8 != 0) return false;
+  return cin % 8 == 0 ||
+         (C / 8 <= kFirstThreads && first_plan(1, 1, 1, 3, cin, C).smem <= kGemmSmemLimit);
+}
+
+// The cost model that chooses between the routes, in picoseconds on an
+// H100 SXM (132 SMs, HBM 3.35 bytes a picosecond). A persistent stage:
+// its busiest block's tiles x (chunks x a chunk's time (a tap's at BN =
+// 64) + a tile's epilogue and first wait), or its input and output
+// through HBM if that is longer; the CUDA-core stage: its FMAs at kFirstFmaPerPs, or its bytes.
+// The fused route: its cost (conv_pass_2d_cost, k steps of a consumer
+// warpgroup summed over an image's blocks) x kFusedUnitPs over the SMs, one
+// block an SM. The times are the H100's, measured (csrc header, PERF.md).
+constexpr long long kSms = 132;
+constexpr long long kChunkPs256 = 646000, kTilePs256 = 1950000;
+constexpr long long kTapPs64 = 384000, kTilePs64 = 870000;
+constexpr long long kFirstFmaPerPs = 7;
+constexpr long long kFusedUnitPs = 110000;
+
+__host__ __device__ inline long long hbm_ps(long long bytes) { return bytes * 1000 / 3350; }
+
+__host__ __device__ inline long long staged_stage_ps(int B, int H, int W, int K, int cin, int C) {
+  const int oh = H - K + 1, ow = W - K + 1;
+  const long long out = (long long)B * oh * ow * C;
+  const long long io = hbm_ps(2 * ((long long)B * H * W * cin + out));
+  long long t;
+  if (cin % 8 != 0) {
+    t = out * K * K * cin / kFirstFmaPerPs;
+  } else {
+    const GemmPlan p = gemm_plan(B, oh, ow, K, cin, C);
+    const long long waves = (p.tiles + kSms - 1) / kSms;
+    t = p.bn == 64 ? waves * (p.chunks * p.taps * kTapPs64 + kTilePs64)
+                   : waves * (p.chunks * kChunkPs256 + kTilePs256);
+  }
+  return t > io ? t : io;
+}
+
+// the staged route's four stages: x -> s0 -> s1 -> s0 -> out
+__host__ __device__ inline long long staged_pass_ps(int B, int H, int W, int cin, int C) {
+  return staged_stage_ps(B, H, W, 3, cin, C) + 2 * staged_stage_ps(B, H - 2, W - 2, 1, C, C) +
+         staged_stage_ps(B, H - 2, W - 2, 3, C, C);
+}
+
+__host__ __device__ inline long long fused_pass_ps(int B, long long cost) {
+  return B * cost * kFusedUnitPs / kSms;
 }
 // ---- K1 staged plan end ----------------------------------------------------
 
@@ -870,32 +1011,43 @@ conv_stage_kernel(const __grid_constant__ CUtensorMap tmap, const unsigned char*
 }
 
 // One K x K stage of the bf16 staged route: (B, oh + K - 1, ow + K - 1,
-// cin) -> (B, oh, ow, C), a persistent implicit GEMM. One block an SM walks
-// the plan's tiles (gemm_tile); a producer warp (warp 8) streams each
-// tile's chunks into a ring of slots, A as a TMA box of the input at the
-// chunk's tap and B as one bulk copy of packed weights, both completing on
-// the slot's full barrier; two consumer warpgroups each issue wgmma
-// m64n256k16 on 64 of the tile's pixels, both operands read from the slot
-// by descriptor, one wgmma group in flight, and release the slot on its
-// empty barrier (one arrival a warp) once the group after it is issued.
-// The epilogue (bias, ReLU, one rounding to bf16) writes the warpgroup's
-// 64 x 256 tile to shared memory in 128-byte swizzled rows, which four TMA
-// stores take to the output, clipped at its edges; meanwhile the producer
-// fills the ring with the next tile's chunks.
+// cin) -> (B, oh, ow, C), a persistent implicit GEMM of BM x BN tiles
+// (gemm_plan). One block an SM walks the plan's tiles (gemm_tile); a
+// producer warp (warp 8) streams each tile's chunks into a ring of slots, A
+// as a TMA box of the input at the chunk's tap and B as one bulk copy of
+// packed weights, both completing on the slot's full barrier; two consumer
+// warpgroups each take half of the tile's pixels (BM / 2) and issue, both
+// operands read from the slot by descriptor, wgmma m64n256k16 (BN = 256:
+// the pixels as A, the weights as B) or m64n128k16 (BN = 64: the 64 output
+// channels' weights as A, the warpgroup's 128 pixels as B, so that the
+// instruction is wide where the stage is), one wgmma group in flight, and
+// release the slot on its empty barrier (one arrival a warp) once the group
+// after it is issued. The epilogue (bias, ReLU, one rounding to bf16)
+// writes the warpgroup's results to shared memory as 64-pixel x 64-channel
+// tiles in 128-byte swizzled rows, which TMA stores take to the output,
+// clipped at its edges; meanwhile the producer fills the ring with the next
+// tile's chunks.
 constexpr int kGemmThreads = 288;  // two consumer warpgroups, then the producer warp
 constexpr int kGemmEmptyArrivals = 8;
 
+template <int BN>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 conv_stage_kernel_persistent(const __grid_constant__ CUtensorMap in_map,
                              const __grid_constant__ CUtensorMap out_map,
                              const unsigned char* __restrict__ w, const float* __restrict__ bias,
                              int B, int oh, int ow, int K, int cin, int C) {
+  constexpr int MT = gemm_bm(BN) / 128;  // 64-pixel store tiles a consumer warpgroup
+  constexpr int NS = BN / 64;  // 64-channel store tiles of a 64-pixel tile
   extern __shared__ __align__(1024) unsigned char gemm_smem[];
   const GemmPlan p = gemm_plan(B, oh, ow, K, cin, C);
+  // a chunk's bytes: its input box (and the box's room in the slot), its
+  // weights; constants at BN = 256 (one tap, a 128-pixel box)
+  const int a_tx = BN == 256 ? 128 * 128 : p.a_tx, a_bytes = BN == 256 ? 128 * 128 : p.a_bytes;
+  const int b_bytes = BN == 256 ? 256 * 128 : p.b_bytes, SLOT = a_bytes + b_bytes;
   unsigned char* ring = gemm_smem + ((kGemmAlign - (smem_u32(gemm_smem) & (kGemmAlign - 1))) &
                                      (kGemmAlign - 1));
-  unsigned char* staging = ring + (size_t)p.slots * kGemmSlotBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(staging + kGemmOutBytes);
+  unsigned char* staging = ring + (size_t)p.slots * SLOT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + gemm_out_bytes(BN));
   uint64_t* empty = full + kGemmMaxSlots;
   if (threadIdx.x == 0) {
     for (int i = 0; i < p.slots; ++i) {
@@ -915,14 +1067,24 @@ conv_stage_kernel_persistent(const __grid_constant__ CUtensorMap in_map,
       for (long long t = blockIdx.x; t < p.tiles; t += gridDim.x) {
         int img, y0, x0, nt;
         gemm_tile(p, t, img, y0, x0, nt);
-        const unsigned char* wt = w + (size_t)nt * p.chunks * kGemmBBytes;
+        const unsigned char* wt = w + (size_t)nt * p.chunks * b_bytes;
         for (int c = 0; c < p.chunks; ++c) {
-          const int tap = c / p.n_cb, cb = c - tap * p.n_cb;
+          // BN = 256: 64 channels at one tap; BN = 64: at one tap row, all its taps dx
+          int cb, dx, dy;
+          if constexpr (BN == 256) {
+            cb = c / (K * K);
+            dy = (c - cb * K * K) / K;
+            dx = c - cb * K * K - dy * K;
+          } else {
+            cb = c / K;
+            dy = c - cb * K;
+            dx = 0;
+          }
           mbar_wait(&empty[slot], phase ^ 1);
-          unsigned char* dst = ring + (size_t)slot * kGemmSlotBytes;
-          mbar_arrive_tx(&full[slot], kGemmSlotBytes);
-          tma_load_4d(dst, &in_map, cb * kGemmK, x0 + tap % K, y0 + tap / K, img, &full[slot]);
-          bulk_g2s(dst + kGemmABytes, wt + (size_t)c * kGemmBBytes, kGemmBBytes, &full[slot]);
+          unsigned char* dst = ring + (size_t)slot * SLOT;
+          mbar_arrive_tx(&full[slot], (uint32_t)(a_tx + b_bytes));
+          tma_load_4d(dst, &in_map, cb * kGemmK, x0 + dx, y0 + dy, img, &full[slot]);
+          bulk_g2s(dst + a_bytes, wt + (size_t)c * b_bytes, b_bytes, &full[slot]);
           if (++slot == p.slots) {
             slot = 0;
             phase ^= 1;
@@ -934,25 +1096,39 @@ conv_stage_kernel_persistent(const __grid_constant__ CUtensorMap in_map,
 
   const int wg = warp >> 2, wq = warp & 3;  // warpgroup; warp within it
   const int g = lane >> 2, tq = lane & 3, tid = threadIdx.x & 127;
-  unsigned char* st = staging + wg * (kGemmOutBytes / 2);  // four 64 x 64 swizzled tiles
-  // the warpgroup's 64 pixels in the box: half of a 1 x 128 row, else
-  // 64 / bw rows; the TMA store box is (64, sw, 64 / sw)
-  const int sw = p.bw < 64 ? p.bw : 64;
-  const int sx = p.bw > 64 ? 64 * wg : 0, sy = p.bw > 64 ? 0 : wg * (64 / sw);
+  unsigned char* st = staging + wg * (gemm_out_bytes(BN) / 2);  // MT x NS swizzled 64 x 64 tiles
   for (long long t = blockIdx.x; t < p.tiles; t += gridDim.x) {
     int img, y0, x0, nt;
     gemm_tile(p, t, img, y0, x0, nt);
-    float acc[128];
+    // BN = 256: D = the warpgroup's 64 pixels x 256 channels; BN = 64: D =
+    // 64 channels x the warpgroup's 128 pixels (the weights as A)
+    float acc[BN == 256 ? 128 : 64];
     int prev = 0;
     for (int c = 0; c < p.chunks; ++c) {
       mbar_wait(&full[slot], phase);
-      const unsigned char* a = ring + (size_t)slot * kGemmSlotBytes;
-      const uint64_t da = desc_kmajor_sw128(a + wg * (kGemmABytes / 2));
-      const uint64_t db = desc_kmajor_sw128(a + kGemmABytes);
+      const unsigned char* a = ring + (size_t)slot * SLOT;
+      // rows of 128 bytes: the warpgroup's pixels of the box, the chunk's weights
       wgmma_fence();
+      if constexpr (BN == 256) {
+        const uint64_t dx = desc_kmajor_sw128(a + wg * 8192);
+        const uint64_t dw = desc_kmajor_sw128(a + a_bytes);
 #pragma unroll
-      for (int k = 0; k < kGemmK / 16; ++k)  // 16 K values (32 bytes) a wgmma
-        wgmma_bf16_n256_ss(acc, da + 2 * k, db + 2 * k, c > 0 || k > 0);
+        for (int k = 0; k < kGemmK / 16; ++k)  // 16 K values (32 bytes) a wgmma
+          wgmma_bf16_n256_ss(acc, dx + 2 * k, dw + 2 * k, c > 0 || k > 0);
+      } else {
+        // tap dx: the warpgroup's row of the box from its pixel dx on. The
+        // start may lie whole 128-byte rows into the swizzle's 8-row period:
+        // wgmma XORs the address bits as TMA did, so the descriptor reads
+        // what TMA wrote there with its base offset left 0 (on the H100 a
+        // base offset of (start >> 7) & 7 gave wrong sums)
+        for (int dx = 0; dx < p.taps; ++dx) {
+          const uint64_t dp = desc_kmajor_sw128(a + (wg * p.box_w + dx) * 128);
+          const uint64_t dw = desc_kmajor_sw128(a + a_bytes + dx * 8192);
+#pragma unroll
+          for (int k = 0; k < kGemmK / 16; ++k)
+            wgmma_bf16_n128_ss(acc, dw + 2 * k, dp + 2 * k, c > 0 || dx > 0 || k > 0);
+        }
+      }
       wgmma_commit();
       wgmma_wait<1>();  // the group before this one is done: its slot is free
       if (c > 0) {
@@ -973,30 +1149,132 @@ conv_stage_kernel_persistent(const __grid_constant__ CUtensorMap in_map,
     // the previous tile's stores have read the staging area
     if (tid == 0) bulk_wait<0, 1>();
     named_sync(1 + wg, 128);
+    if constexpr (BN == 256) {
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int col = nt * kGemmN + 8 * j + 2 * tq;
-      const float b0 = col < C ? __ldg(bias + col) : 0.f;
-      const float b1 = col + 1 < C ? __ldg(bias + col + 1) : 0.f;
+      for (int j = 0; j < 32; ++j) {
+        const int col = nt * BN + 8 * j + 2 * tq;
+        const float b0 = col < C ? __ldg(bias + col) : 0.f;
+        const float b1 = col + 1 < C ? __ldg(bias + col + 1) : 0.f;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = 16 * wq + g + 8 * h;  // the pixel, row q of the 64; q % 8 = g
-        *reinterpret_cast<__nv_bfloat162*>(st + (j >> 3) * 8192 + q * 128 +
-                                           (((j & 7) ^ g) << 4) + 4 * tq) =
-            __floats2bfloat162_rn(fmaxf(acc[4 * j + 2 * h] + b0, 0.f),
-                                  fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f));
+        for (int h = 0; h < 2; ++h) {
+          const int q = 16 * wq + g + 8 * h;  // the pixel, row q of the 64; q % 8 = g
+          *reinterpret_cast<__nv_bfloat162*>(st + (j >> 3) * 8192 + q * 128 +
+                                             (((j & 7) ^ g) << 4) + 4 * tq) =
+              __floats2bfloat162_rn(fmaxf(acc[4 * j + 2 * h] + b0, 0.f),
+                                    fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f));
+        }
       }
+    } else {
+      // acc[4 j + 2 h + e]: channel 16 wq + g + 8 h, pixel 8 j + 2 tq + e of
+      // the warpgroup's 128, stored in its pixel's 128-byte row
+      const int ch = 16 * wq + g;
+      const float b0 = ch < C ? __ldg(bias + ch) : 0.f;
+      const float b1 = ch + 8 < C ? __ldg(bias + ch + 8) : 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = 8 * j + 2 * tq + e;
+          unsigned char* row = st + (q >> 6) * 8192 + (q & 63) * 128 + (ch & 7) * 2;
+          *reinterpret_cast<__nv_bfloat16*>(row + (((ch >> 3) ^ (q & 7)) << 4)) =
+              __float2bfloat16_rn(fmaxf(acc[4 * j + e] + b0, 0.f));
+          *reinterpret_cast<__nv_bfloat16*>(row + ((((ch >> 3) + 1) ^ (q & 7)) << 4)) =
+              __float2bfloat16_rn(fmaxf(acc[4 * j + 2 + e] + b1, 0.f));
+        }
     }
     fence_proxy_async();
     named_sync(1 + wg, 128);
     if (tid == 0) {
-      for (int s = 0; s < kGemmN / 64; ++s)
-        if (nt * kGemmN + 64 * s < C)
-          tma_store_4d(&out_map, st + s * 8192, nt * kGemmN + 64 * s, x0 + sx, y0 + sy, img);
+      // store tile i holds pixels 64 i .. 64 i + 63 of the box, row-major: a
+      // store box (64, sw, 64 / sw) at (sx, sy) of the box
+      const int sw = p.bw < 64 ? p.bw : 64;
+      for (int mi = 0; mi < MT; ++mi) {
+        const int i = wg * MT + mi;
+        const int sx = p.bw >= 64 ? (64 * i) % p.bw : 0;
+        const int sy = p.bw >= 64 ? (64 * i) / p.bw : i * (64 / sw);
+        for (int s = 0; s < NS; ++s)
+          if (nt * BN + 64 * s < C)
+            tma_store_4d(&out_map, st + (mi * NS + s) * 8192, nt * BN + 64 * s, x0 + sx, y0 + sy,
+                         img);
+      }
       bulk_commit();
     }
   }
   if (tid == 0) bulk_wait<0, 0>();
+}
+
+// One 3 x 3 stage of few input channels (cin % 8 != 0: the first stage of a
+// one- or three-channel image, which TMA cannot stride and whose 9 x cin K
+// values would fill a 64-channel chunk to a ninth or less), bf16, on the
+// CUDA cores: a thread takes kFirstPix neighbouring output pixels of a row x
+// 8 output channels, sums the 3 x 3 x cin products in f32 (fmaf, in the
+// order (dy, channel, dx)), adds the f32 bias, applies ReLU, rounds once to
+// bf16 and stores each pixel's 8 channels as 16 bytes. The weights (the
+// plain (3, 3, cin, C) array) are held in shared memory as f32; the
+// kFirstPix + 2 input pixels of a row and channel are read once through the
+// read-only cache for the three taps dx (a warp's lanes of one pixel group
+// read the same address). Bound by its output's bytes (first_plan).
+__global__ void __launch_bounds__(kFirstThreads)
+conv_stage_kernel_first(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                        const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int B,
+                        int H, int W, int cin, int C) {
+  constexpr int K = 3, U = kFirstPix + K - 1;
+  extern __shared__ __align__(16) float first_w[];
+  const int oh = H - K + 1, ow = W - K + 1;
+  const FirstPlan p = first_plan(B, oh, ow, K, cin, C);
+  for (int i = threadIdx.x; i < K * K * cin * C; i += blockDim.x)
+    first_w[i] = __bfloat162float(w[i]);
+  __syncthreads();
+  const int cg = threadIdx.x % p.groups, pg = threadIdx.x / p.groups;
+  if (pg >= p.per_block) return;
+  const int xg = gemm_cdiv(ow, kFirstPix);
+  float b[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) b[e] = __ldg(bias + 8 * cg + e);
+  for (long long it = (long long)blockIdx.x * p.per_block + pg; it < p.items;
+       it += (long long)gridDim.x * p.per_block) {
+    const int x0 = (int)(it % xg) * kFirstPix;
+    const long long r = it / xg;
+    const int y = (int)(r % oh), img = (int)(r / oh);
+    float acc[kFirstPix][8];
+#pragma unroll
+    for (int q = 0; q < kFirstPix; ++q)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[q][e] = 0.f;
+    int col[U];  // input pixels past the row read its last one (their outputs are not stored)
+#pragma unroll
+    for (int u = 0; u < U; ++u) col[u] = min(x0 + u, W - 1) * cin;
+    for (int dy = 0; dy < K; ++dy) {
+      const __nv_bfloat16* row = x + ((size_t)img * H + y + dy) * W * cin;
+      for (int ci = 0; ci < cin; ++ci) {
+        float v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) v[u] = __bfloat162float(row[col[u] + ci]);
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) {
+          const float* wr = first_w + ((dy * K + dx) * cin + ci) * C + 8 * cg;
+          const float4 w0 = *reinterpret_cast<const float4*>(wr);
+          const float4 w1 = *reinterpret_cast<const float4*>(wr + 4);
+          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int q = 0; q < kFirstPix; ++q)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[q][e] = fmaf(v[q + dx], wv[e], acc[q][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kFirstPix; ++q) {
+      if (x0 + q >= ow) break;
+      uint4 o;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        h[e] = __floats2bfloat162_rn(fmaxf(acc[q][2 * e] + b[2 * e], 0.f),
+                                     fmaxf(acc[q][2 * e + 1] + b[2 * e + 1], 0.f));
+      *reinterpret_cast<uint4*>(out + (((size_t)img * oh + y) * ow + x0 + q) * C + 8 * cg) = o;
+    }
+  }
 }
 
 // Relative cost of a pass with th x tw tiles over an H x W input: blocks x
@@ -1046,18 +1324,20 @@ int launch_stage(const T* x, const void* w, const float* b, T* out, int B, int H
   return (int)cudaGetLastError();
 }
 
-// One stage of the bf16 staged route: a block on each SM (or one a tile).
-int launch_stage_persistent(const void* x, const void* w, const float* b, void* out, int B, int H,
-                            int W, int K, int cin, int C, cudaStream_t stream) {
+// One stage of the bf16 staged route on the persistent kernel: a block on
+// each SM (or one a tile).
+template <int BN>
+int launch_persistent(const void* x, const void* w, const float* b, void* out, int B, int H, int W,
+                      int K, int cin, int C, cudaStream_t stream) {
   const int oh = H - K + 1, ow = W - K + 1;
   const GemmPlan p = gemm_plan(B, oh, ow, K, cin, C);
   CUtensorMap in_map, out_map;
-  int rc = tmap::encode_nhwc(&in_map, x, B, H, W, cin, kGemmK, p.bw, p.bh, 2, true);
+  int rc = tmap::encode_nhwc(&in_map, x, B, H, W, cin, kGemmK, p.box_w, p.bh, 2, true);
   if (rc) return rc;
   const int sw = p.bw < 64 ? p.bw : 64;
   rc = tmap::encode_nhwc(&out_map, out, B, oh, ow, C, 64, sw, 64 / sw, 2, true);
   if (rc) return rc;
-  cudaError_t err = cudaFuncSetAttribute(conv_stage_kernel_persistent,
+  cudaError_t err = cudaFuncSetAttribute(conv_stage_kernel_persistent<BN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
@@ -1065,19 +1345,50 @@ int launch_stage_persistent(const void* x, const void* w, const float* b, void* 
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const int grid = (int)(p.tiles < sms ? p.tiles : sms);
-  conv_stage_kernel_persistent<<<grid, kGemmThreads, p.smem, stream>>>(
+  conv_stage_kernel_persistent<BN><<<grid, kGemmThreads, p.smem, stream>>>(
       in_map, out_map, (const unsigned char*)w, b, B, oh, ow, K, cin, C);
   return (int)cudaGetLastError();
 }
 
+// One 3 x 3 stage on the CUDA cores: enough blocks for every SM several
+// times over.
+int launch_first(const void* x, const void* w, const float* b, void* out, int B, int H, int W,
+                 int K, int cin, int C, cudaStream_t stream) {
+  const FirstPlan p = first_plan(B, H - K + 1, W - K + 1, K, cin, C);
+  if (K != 3 || p.per_block < 1 || p.smem > kGemmSmemLimit) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(conv_stage_kernel_first,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (p.items + p.per_block - 1) / p.per_block;
+  const int grid = (int)(blocks < 8LL * sms ? blocks : 8LL * sms);
+  conv_stage_kernel_first<<<grid, kFirstThreads, p.smem, stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, b, (__nv_bfloat16*)out, B, H, W, cin, C);
+  return (int)cudaGetLastError();
+}
+
+// One stage of the bf16 staged route: the CUDA cores where TMA cannot
+// stride the input (cin % 8 != 0), else the persistent kernel at the plan's
+// tile width.
+int launch_stage_bf16(const void* x, const void* w, const float* b, void* out, int B, int H,
+                      int W, int K, int cin, int C, cudaStream_t stream) {
+  if (C % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (cin % 8 != 0) return launch_first(x, w, b, out, B, H, W, K, cin, C, stream);
+  if (gemm_bn(C) == 64) return launch_persistent<64>(x, w, b, out, B, H, W, K, cin, C, stream);
+  return launch_persistent<256>(x, w, b, out, B, H, W, K, cin, C, stream);
+}
+
 // The staged route: the pass's four stages, one launch each, x -> s0 -> s1
 // -> s0 -> out; s0 and s1 hold (B, H-2, W-2, C) in the compute type. bf16
-// takes the persistent kernel (th, tw unused), float32 conv_stage_kernel.
+// takes launch_stage_bf16 (th, tw unused), float32 conv_stage_kernel.
 template <typename T>
 int launch_stage_any(const T* x, const void* w, const float* b, T* out, int B, int H, int W,
                      int K, int cin, int C, int th, int tw, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2)
-    return launch_stage_persistent(x, w, b, out, B, H, W, K, cin, C, stream);
+    return launch_stage_bf16(x, w, b, out, B, H, W, K, cin, C, stream);
   else
     return launch_stage<T>(x, w, b, out, B, H, W, K, cin, C, th, tw, stream);
 }
@@ -1142,35 +1453,48 @@ long long conv_pass_2d_cost(int cin, int C, int th, int tw, int H, int W, int el
 
 // Bytes of dynamic shared memory one block of the staged route needs for a
 // K x K stage (K = 1 or 3) with cin input channels and a th x tw output tile
-// (float32); bf16's persistent kernel needs the same at every shape.
+// (float32); in bf16 the persistent kernel's 256-column variant, the same at
+// every shape.
 long long conv_pass_2d_staged_smem_bytes(int K, int cin, int th, int tw, int elem_bytes) {
-  return elem_bytes == 2 ? gemm_plan(1, 1, 1, K, cin, kGemmN).smem
+  return elem_bytes == 2 ? gemm_plan(1, 1, 1, K, cin, 256).smem
                          : staged_layout<float>(K, cin, th, tw).total;
 }
 
 // The bf16 staged route's plan of a K x K stage with output grid oh x ow:
-// out[0..10] = bh, bw, tiles_y, tiles_x, m_tiles, n_tiles, tiles, n_cb,
-// chunks, slots, shared bytes. Returns 0.
+// out[0..15] = bm, bn, bh, bw, tiles_y, tiles_x, m_tiles, n_tiles, tiles,
+// n_cb, chunks, taps, box_w, a_bytes, slots, shared bytes. Returns 0.
 int conv_pass_2d_staged_plan(int B, int oh, int ow, int K, int cin, int C, long long* out) {
   const GemmPlan p = gemm_plan(B, oh, ow, K, cin, C);
-  const long long v[11] = {p.bh, p.bw, p.tiles_y, p.tiles_x, p.m_tiles, p.n_tiles,
-                           p.tiles, p.n_cb, p.chunks, p.slots, p.smem};
-  for (int i = 0; i < 11; ++i) out[i] = v[i];
+  const long long v[16] = {p.bm,      p.bn,    p.bh,     p.bw,     p.tiles_y, p.tiles_x,
+                           p.m_tiles, p.n_tiles, p.tiles, p.n_cb,  p.chunks,  p.taps,
+                           p.box_w,   p.a_bytes, p.slots, p.smem};
+  for (int i = 0; i < 16; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The cost model's picoseconds of a pass on (B, H, W, cin) -> C: out[0] the
+// bf16 staged route's (-1 where it cannot take the pass), out[1] the fused
+// route's at a th x tw tile (-1 where no block fits). Returns 0.
+int conv_pass_2d_route_cost(int B, int H, int W, int cin, int C, int th, int tw, long long* out) {
+  out[0] = staged_takes(cin, C) ? staged_pass_ps(B, H, W, cin, C) : -1;
+  out[1] = fused_layout<__nv_bfloat16>(cin, C, th, tw).total <= kMaxSmem
+               ? fused_pass_ps(B, pass_cost<__nv_bfloat16>(cin, C, th, tw, H, W))
+               : -1;
   return 0;
 }
 
 // One stage of the bf16 staged route alone: x (B, H, W, cin) -> out (B,
-// H-K+1, W-K+1, C), w packed by the wrapper (pack_stage_persistent), b f32.
-// Returns the error code (0 = ok).
+// H-K+1, W-K+1, C), w packed by the wrapper (pack_stage_persistent; where
+// cin % 8 != 0 the plain (K, K, cin, C) bf16 array), b f32. Returns the
+// error code (0 = ok).
 int conv_pass_2d_stage_launch(const void* x, const void* w, const void* b, void* out, int B,
                               int H, int W, int K, int cin, int C, void* stream) {
-  return launch_stage_persistent(x, w, (const float*)b, out, B, H, W, K, cin, C,
-                                 (cudaStream_t)stream);
+  return launch_stage_bf16(x, w, (const float*)b, out, B, H, W, K, cin, C, (cudaStream_t)stream);
 }
 
 // The staged route (one launch per stage); w1..w4 packed by the wrapper for
 // this route; s0, s1: scratch of B x (H-2) x (W-2) x C elements each. cin and
-// C must be multiples of 16 (bf16) or 8 (f32). Returns the first error code
+// C must be multiples of 8 (f32; bf16 where staged_takes). Returns the first error code
 // (0 = ok; CUDA's, 9001/9002 when the TMA map cannot be encoded, 9003 when
 // the kernel's register pool cannot serve setmaxnreg).
 int conv_pass_2d_staged_launch(const void* x, const void* w1, const void* b1, const void* w2,

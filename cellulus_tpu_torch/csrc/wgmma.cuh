@@ -16,7 +16,8 @@
 //   registers and B from shared memory by descriptor, m64n64k16 bf16 (B
 //   K-major, or MN-major with the transpose bit), m64n64k8 and m64n32k8
 //   tf32 (f32 bit patterns, read as tf32 by dropping their low 13 bits);
-//   with both operands by descriptor, m64n256k16 bf16 (K-major);
+//   with both operands by descriptor, m64n256k16 and m64n128k16 bf16
+//   (K-major);
 // - setmaxnreg and named barriers for warp specialisation;
 // - the tf32 split of an f32 value for 3xTF32.
 //
@@ -240,6 +241,9 @@ __device__ __forceinline__ uint64_t desc_mn_sw128(const void* p, uint32_t group)
 // bytes past that start to read K values 16 k .. 16 k + 15 (the swizzle is
 // applied to the address bits, so the step stays inside the row). The
 // leading byte offset is unused at this swizzle (set to 1, in 16 bytes).
+// p may also lie whole 128-byte rows past the start (K1's taps dx: a box
+// read from its pixel dx on): the XOR is taken on the address bits, as TMA
+// wrote them, and the descriptor's base offset stays 0.
 __device__ __forceinline__ uint64_t desc_kmajor_sw128(const void* p) {
   return desc_kmajor(p, 16, 1024) | (1ull << 62);  // layout type 1: 128-byte swizzle
 }
@@ -300,6 +304,33 @@ __device__ __forceinline__ void wgmma_bf16_n256_ss(float (&d)[128], uint64_t a, 
         "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a * b: m64n128k16, bf16 inputs, A and B both K-major by descriptor
+// (D: d[4j + 0..1] = (g, 8j + 2t..2t+1), d[4j + 2..3] = (g+8, ...), j =
+// 0..15); scale_d = 0 ignores d's contents
+__device__ __forceinline__ void wgmma_bf16_n128_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

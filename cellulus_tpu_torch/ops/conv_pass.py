@@ -21,19 +21,23 @@ The kernel has two routes, chosen by shape before the launch
 (:func:`conv_pass_2d_plan`): the fused pass, one launch with the
 intermediates in shared memory, at the square tile of at least
 ``FUSED_MIN_TILE`` that fits one block and that the kernel's cost model
-rates cheapest; and, for a pass where no such tile fits (the bottom pass of
-a 256-fmap model), the staged route, one launch per stage with the
-intermediates in device memory in the compute dtype. In bfloat16 a staged
-stage is a persistent implicit GEMM of 128-pixel x 256-channel tiles
-(:func:`staged_plan` mirrors its plan); in float32 it keeps the square
-tile of the plan. The plan is computed here from Python mirrors of the
-source's size and cost formulas (``chip_smoke.py`` holds them against the
-library's, and a CPU test against a g++ build of the staged plan's lines),
-so the CPU tests can check the route of every pass. Before each launch the
-wrapper packs the weights into the layout the kernel's ``wgmma`` reads from
-its ring (:func:`pack_stage`, float32 as tf32 hi and lo arrays;
-:func:`pack_stage_persistent` for the bfloat16 staged route), which the CPU
-tests check too.
+rates cheapest; and the staged route, one launch per stage with the
+intermediates in device memory in the compute dtype. In float32 the staged
+route takes a pass where no such fused tile fits (the bottom pass of a
+256-fmap model), at the square tile of the plan. In bfloat16 it takes a
+pass wherever a cost model of both routes rates it faster (every pass of
+the 64- and 256-fmap models): a stage is a persistent implicit GEMM of
+128-pixel x 256-channel tiles, or of two rows of 128 pixels x 64 channels
+where the pass has 64 output channels or fewer (:func:`staged_plan`
+mirrors its plan), and a first stage of fewer than 8 input channels runs
+on the CUDA cores (:func:`first_plan`). The plan is computed here from
+Python mirrors of the source's size and cost formulas (``chip_smoke.py``
+holds them against the library's, and a CPU test against a g++ build of
+the staged plan's lines), so the CPU tests can check the route of every
+pass. Before each launch the wrapper packs the weights into the layout the
+kernel's ``wgmma`` reads from its ring (:func:`pack_stage`, float32 as tf32
+hi and lo arrays; :func:`pack_stage_bf16` for the bfloat16 staged route),
+which the CPU tests check too.
 """
 
 from __future__ import annotations
@@ -72,6 +76,8 @@ _SIGNATURES = {
     "conv_pass_2d_cost": ([ctypes.c_int] * 7, ctypes.c_longlong),
     "conv_pass_2d_staged_plan": ([ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)],
                                  ctypes.c_int),
+    "conv_pass_2d_route_cost": ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)],
+                                ctypes.c_int),
     "conv_pass_2d_stage_launch": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
         ctypes.c_int,
@@ -89,17 +95,25 @@ NB = 64  # wgmma N: the columns of one n-block
 _MAX_SLOTS = 4
 _BAR_BYTES = 128
 
-# csrc/conv_pass.cu's bf16 staged route (conv_stage_kernel_persistent):
-# tiles of GEMM_M output pixels x GEMM_N output channels, K in chunks of one
-# tap x GEMM_K input channels; a ring slot holds the chunk's A (one TMA box)
-# and B (one bulk copy of the pack), beside the epilogue's output tile
-GEMM_M, GEMM_N, GEMM_K = 128, 256, 64
-GEMM_A_BYTES = GEMM_M * GEMM_K * 2
-GEMM_B_BYTES = GEMM_N * GEMM_K * 2
-GEMM_SLOT_BYTES = GEMM_A_BYTES + GEMM_B_BYTES
-GEMM_OUT_BYTES = GEMM_M * GEMM_N * 2
+# csrc/conv_pass.cu's bf16 staged route (conv_stage_kernel_persistent<BN>):
+# tiles of BM output pixels x BN output channels (BN = GEMM_N = 256, BM =
+# 128 where C > 64; BN = 64, BM = 256 where C <= 64), K in chunks of GEMM_K
+# input channels at one tap (BN = 256) or one tap row (BN = 64); a ring
+# slot holds the chunk's A (one TMA box) and B (one bulk copy of the pack),
+# beside the epilogue's output tile
+GEMM_N, GEMM_K = 256, 64
 _GEMM_MAX_SLOTS = 8
 _GEMM_ALIGN = 1024
+# its CUDA-core stage (conv_stage_kernel_first), for cin % 8 != 0: blocks of
+# FIRST_THREADS threads, a thread FIRST_PIX pixels of a row x 8 channels
+FIRST_THREADS, FIRST_PIX = 256, 4
+# the cost model of the routes (csrc/conv_pass.cu, between the "K1 staged
+# plan" markers), in picoseconds on an H100 SXM; at 64 columns a tap's time
+SMS = 132
+_CHUNK_PS = {256: 646000, 64: 384000}
+_TILE_PS = {256: 1950000, 64: 870000}
+_FIRST_FMA_PER_PS = 7
+_FUSED_UNIT_PS = 110000
 
 
 def _ceil(a: int, b: int) -> int:
@@ -209,26 +223,53 @@ def fused_cost(c_in: int, c: int, th: int, tw: int, H: int, W: int, elem: int) -
     return _ceil(H - 4, th) * _ceil(W - 4, tw) * per_block
 
 
+def gemm_bn(c: int) -> int:
+    """Output channels of a persistent tile: 64 where ``c`` <= 64, else 256."""
+    return 64 if c <= 64 else 256
+
+
+def gemm_bm(bn: int) -> int:
+    """Output pixels of a persistent tile of ``bn`` channels."""
+    return 256 if bn == 64 else 128
+
+
 def staged_plan(B: int, oh: int, ow: int, k: int, c_in: int, c: int) -> dict:
     """Mirror of ``gemm_plan`` (``conv_pass_2d_staged_plan``), the bf16
-    staged route's plan of a ``k x k`` stage with an ``oh x ow`` output grid:
-    the box of 128 output pixels (``bh`` x ``bw``, ``bh`` in 1, 2, 4, 8; the
-    one that pads the grid least, the widest on a tie), the boxes over an
-    image and the batch, the 256-column n-tiles, the tiles the persistent
-    blocks walk, the 64-channel blocks of ``c_in`` and the chunks a tile
-    (taps x blocks), the ring's slots and the shared bytes (the ring, the
-    epilogue's output tile, the barriers and 1024 bytes of alignment slack)."""
-    area = {h: _ceil(oh, h) * h * _ceil(ow, GEMM_M // h) * (GEMM_M // h) for h in (1, 2, 4, 8)}
-    bh = min(area, key=lambda h: (area[h], h))
-    bw = GEMM_M // bh
+    staged route's plan of a ``k x k`` stage with an ``oh x ow`` output grid
+    on the persistent kernel: the tile of ``bm`` pixels x ``bn`` channels
+    (:func:`gemm_bn`), the box of its pixels (``bh`` x ``bw``: at 256
+    columns ``bh`` in 1, 2, 4, 8, the one that pads the grid least, the
+    widest on a tie; at 64 columns two rows of 128), the boxes over an image
+    and the batch, the ``bn``-column n-tiles, the tiles the persistent
+    blocks walk, the 64-channel blocks of ``c_in``, the chunks a tile and
+    the taps a chunk (at 64 columns a tap row's ``k`` taps, its input box
+    ``box_w`` = ``bw + k - 1`` wide), a chunk's input box (``a_tx`` bytes,
+    ``a_bytes`` of room, 1024-aligned) and weights (``b_bytes``), the
+    ring's slots and the shared bytes (the ring, the epilogue's output
+    tile, the barriers and 1024 bytes of alignment slack)."""
+    bn = gemm_bn(c)
+    bm = gemm_bm(bn)
+    if bn == GEMM_N:
+        area = {h: _ceil(oh, h) * h * _ceil(ow, bm // h) * (bm // h) for h in (1, 2, 4, 8)}
+        bh = min(area, key=lambda h: (area[h], h))
+    else:
+        bh = 2
+    bw = bm // bh
     tiles_y, tiles_x = _ceil(oh, bh), _ceil(ow, bw)
-    m_tiles, n_tiles = B * tiles_y * tiles_x, _ceil(c, GEMM_N)
+    m_tiles, n_tiles = B * tiles_y * tiles_x, _ceil(c, bn)
     n_cb = _ceil(c_in, GEMM_K)
-    fixed = _GEMM_ALIGN + GEMM_OUT_BYTES + 2 * _GEMM_MAX_SLOTS * 8
-    slots = min(_GEMM_MAX_SLOTS, (MAX_SHARED_BYTES - fixed) // GEMM_SLOT_BYTES)
-    return dict(bh=bh, bw=bw, tiles_y=tiles_y, tiles_x=tiles_x, m_tiles=m_tiles,
-                n_tiles=n_tiles, tiles=m_tiles * n_tiles, n_cb=n_cb, chunks=k * k * n_cb,
-                slots=slots, smem=fixed + slots * GEMM_SLOT_BYTES)
+    taps = k if bn == 64 else 1
+    box_w = bw + taps - 1
+    a_tx = bh * box_w * GEMM_K * 2
+    a_bytes = _ceil(a_tx, _GEMM_ALIGN) * _GEMM_ALIGN
+    b_bytes = taps * bn * GEMM_K * 2
+    fixed = _GEMM_ALIGN + bm * bn * 2 + 2 * _GEMM_MAX_SLOTS * 8
+    slots = min(_GEMM_MAX_SLOTS, (MAX_SHARED_BYTES - fixed) // (a_bytes + b_bytes))
+    return dict(bm=bm, bn=bn, bh=bh, bw=bw, tiles_y=tiles_y, tiles_x=tiles_x, m_tiles=m_tiles,
+                n_tiles=n_tiles, tiles=m_tiles * n_tiles, n_cb=n_cb,
+                chunks=k * k * n_cb // taps, taps=taps, box_w=box_w, a_tx=a_tx,
+                a_bytes=a_bytes, b_bytes=b_bytes, slots=slots,
+                smem=fixed + slots * (a_bytes + b_bytes))
 
 
 def staged_tile(plan: dict, t: int):
@@ -239,13 +280,79 @@ def staged_tile(plan: dict, t: int):
     return img, (r // plan["tiles_x"]) * plan["bh"], (r % plan["tiles_x"]) * plan["bw"], nt
 
 
-def staged_tiles(shape, c_out: int) -> int:
-    """Output tiles the bf16 staged route computes for a pass of NHWC input
-    ``shape``: its four stages' ``staged_plan`` tiles."""
+def first_plan(B: int, oh: int, ow: int, k: int, c_in: int, c: int) -> dict:
+    """Mirror of ``first_plan``, the CUDA-core stage's plan: the 8-channel
+    groups of ``c`` (a pixel group's threads), the pixel groups a block
+    takes at once, the pixel groups of the batch (``FIRST_PIX`` pixels of a
+    row each) and the weights' shared bytes (f32)."""
+    groups = c // 8
+    return dict(groups=groups, per_block=FIRST_THREADS // groups if groups else 0,
+                items=B * oh * _ceil(ow, FIRST_PIX), smem=4 * k * k * c_in * c)
+
+
+def staged_takes(c_in: int, c: int) -> bool:
+    """Mirror of ``staged_takes``: whether the bf16 staged route takes a
+    pass of ``c_in`` -> ``c`` channels (outputs TMA-strided, the first stage
+    on the persistent kernel or on the CUDA cores)."""
+    if c % 8:
+        return False
+    return c_in % 8 == 0 or (c // 8 <= FIRST_THREADS
+                             and first_plan(1, 1, 1, 3, c_in, c)["smem"] <= MAX_SHARED_BYTES)
+
+
+def _hbm_ps(nbytes: int) -> int:
+    return nbytes * 1000 // 3350
+
+
+def staged_stage_ps(B: int, H: int, W: int, k: int, c_in: int, c: int) -> int:
+    """Mirror of ``staged_stage_ps``: the cost model's picoseconds of one
+    bf16 staged stage, the larger of its compute (the persistent kernel's
+    busiest block: tiles x (chunks x a chunk (a tap's time where a chunk
+    holds a tap row) + a tile's epilogue); the CUDA-core stage's FMAs) and
+    its input and output through HBM."""
+    oh, ow = H - k + 1, W - k + 1
+    out = B * oh * ow * c
+    io = _hbm_ps(2 * (B * H * W * c_in + out))
+    if c_in % 8:
+        t = out * k * k * c_in // _FIRST_FMA_PER_PS
+    else:
+        p = staged_plan(B, oh, ow, k, c_in, c)
+        t = _ceil(p["tiles"], SMS) * (p["chunks"] * p["taps"] * _CHUNK_PS[p["bn"]]
+                                      + _TILE_PS[p["bn"]])
+    return max(t, io)
+
+
+def staged_pass_ps(B: int, H: int, W: int, c_in: int, c: int) -> int:
+    """Mirror of ``staged_pass_ps``: the four stages' picoseconds."""
+    return (staged_stage_ps(B, H, W, 3, c_in, c) + 2 * staged_stage_ps(B, H - 2, W - 2, 1, c, c)
+            + staged_stage_ps(B, H - 2, W - 2, 3, c, c))
+
+
+def fused_pass_ps(B: int, cost: int) -> int:
+    """Mirror of ``fused_pass_ps``: the fused route's picoseconds at a tile
+    of cost ``cost`` (:func:`fused_cost`), one block an SM."""
+    return B * cost * _FUSED_UNIT_PS // SMS
+
+
+def staged_work(shape, c_out: int) -> dict:
+    """Work the bf16 staged route does for a pass of NHWC input ``shape``,
+    by kernel: ``{"k1.staged_tiles": ..., "k1.staged_tiles_n64": ...,
+    "k1.first_pixels": ...}``, the persistent kernel's tiles of 256 and of
+    64 columns (``staged_plan``) and the output pixels of the CUDA-core
+    stage; kernels the pass does not run are left out."""
     B, H, W, c_in = shape
     stages = ((H - 2, W - 2, 3, c_in), (H - 2, W - 2, 1, c_out), (H - 2, W - 2, 1, c_out),
               (H - 4, W - 4, 3, c_out))
-    return sum(staged_plan(B, oh, ow, k, ci, c_out)["tiles"] for oh, ow, k, ci in stages)
+    work = {}
+    for oh, ow, k, ci in stages:
+        if ci % 8:
+            key, n = "k1.first_pixels", B * oh * ow
+        else:
+            p = staged_plan(B, oh, ow, k, ci, c_out)
+            key = "k1.staged_tiles" if p["bn"] == GEMM_N else "k1.staged_tiles_n64"
+            n = p["tiles"]
+        work[key] = work.get(key, 0) + n
+    return work
 
 
 def staged_smem_bytes(k: int, c_in: int, th: int, tw: int, elem: int) -> int:
@@ -292,39 +399,52 @@ def pack_stage(w: torch.Tensor, sb: int = 0) -> torch.Tensor:
     return packed
 
 
-def sw128_units(n: int) -> torch.Tensor:
+def sw128_units(n: int, device=None) -> torch.Tensor:
     """``(n, 8)``: the 16-byte unit that row r's unit u occupies in a tile
     of 128-byte rows laid out with the 128-byte swizzle, ``u ^ (r % 8)``
     (TMA's SWIZZLE_128B, and the layout the kernel's K-major descriptors
     name)."""
-    return torch.arange(8)[None, :] ^ (torch.arange(n)[:, None] % 8)
+    return (torch.arange(8, device=device)[None, :]
+            ^ (torch.arange(n, device=device)[:, None] % 8))
 
 
 def pack_stage_persistent(w: torch.Tensor) -> torch.Tensor:
     """One stage's bf16 weights ``(k, k, c_in, c)`` packed for the bf16
-    staged route: ``(n_tiles, chunks, 256, 64)``, per 256-column n-tile and
-    chunk (tap c // n_cb, input channels 64 (c % n_cb) ..) the 256 output
-    columns' 64 K values each in a 128-byte row, K-major, its 16-byte units
-    swizzled (:func:`sw128_units`), so that a chunk is one contiguous 32 KB
-    copy that the wgmma descriptor reads as it lands. Channels past ``c_in``
+    staged route's persistent kernel: ``(n_tiles, chunks, bn, 64)`` (``bn``
+    = :func:`gemm_bn` of ``c``), per ``bn``-column n-tile and chunk (input
+    channels 64 (c // k^2) .., tap c % k^2) the ``bn`` output columns' 64
+    K values each in a 128-byte row, K-major, its 16-byte units swizzled
+    (:func:`sw128_units`), so that a chunk is one contiguous copy (32 or 8
+    KB) that the wgmma descriptor reads as it lands. Channels past ``c_in``
     and columns past ``c`` are zeros."""
     k, _, c_in, c = w.shape
-    n_cb, n_t = _ceil(c_in, GEMM_K), _ceil(c, GEMM_N)
-    rows = F.pad(w.reshape(k * k, c_in, c), (0, n_t * GEMM_N - c, 0, n_cb * GEMM_K - c_in))
-    # (tap, block, k, n-tile, n) -> (n-tile, tap, block, n, unit, 8)
-    t = rows.reshape(k * k, n_cb, GEMM_K, n_t, GEMM_N).permute(3, 0, 1, 4, 2)
-    t = t.reshape(n_t, k * k * n_cb, GEMM_N, GEMM_K // 8, 8)
-    # unit s of row n holds the source unit s ^ (n % 8) (the XOR is its own inverse)
-    n = torch.arange(GEMM_N)[:, None]
-    packed = t[:, :, n, sw128_units(GEMM_N)]
-    return packed.reshape(n_t, k * k * n_cb, GEMM_N, GEMM_K).contiguous()
+    bn = gemm_bn(c)
+    n_cb, n_t = _ceil(c_in, GEMM_K), _ceil(c, bn)
+    rows = F.pad(w.reshape(k * k, c_in, c), (0, n_t * bn - c, 0, n_cb * GEMM_K - c_in))
+    # (tap, block, k, n-tile, n) -> (n-tile, block, tap, n, unit, 8)
+    t = rows.reshape(k * k, n_cb, GEMM_K, n_t, bn).permute(3, 1, 0, 4, 2)
+    t = t.reshape(n_t, k * k * n_cb, bn, GEMM_K // 8, 8)
+    # unit s of row n holds the source unit s ^ (n % 8) (the XOR is its own
+    # inverse); the indices are made where w is, so that packing on the card
+    # copies nothing from the host (a pageable copy would hold the host until
+    # the card has run everything queued before it)
+    n = torch.arange(bn, device=w.device)[:, None]
+    packed = t[:, :, n, sw128_units(bn, w.device)]
+    return packed.reshape(n_t, k * k * n_cb, bn, GEMM_K).contiguous()
+
+
+def pack_stage_bf16(w: torch.Tensor) -> torch.Tensor:
+    """One stage's bf16 weights for the bf16 staged route: the persistent
+    kernel's pack, or, where the stage's input channels are not a multiple
+    of 8 (the CUDA-core stage), the plain ``(k, k, c_in, c)`` array."""
+    return w.contiguous() if w.shape[2] % 8 else pack_stage_persistent(w)
 
 
 def pack_pass(weights, route: str, c_in: int, c: int) -> list:
     """The four stages' weights packed for ``route`` (compute dtype)."""
     elem = weights[0].element_size()
     if route == "staged" and elem == 2:
-        return [pack_stage_persistent(w) for w in weights]
+        return [pack_stage_bf16(w) for w in weights]
     if route == "fused":
         sbs = [stream_sb(3, c_in, elem) if fused_streams(c_in, elem) else 0, 0, 0, 0]
     else:
@@ -391,35 +511,48 @@ def conv_pass_2d_plain(
 
 
 def conv_pass_2d_plan(shape, c_out: int, compute_dtype):
-    """The route and square output tile an NHWC input of ``shape`` takes:
-    ``("fused", t)``, the tile of at least ``FUSED_MIN_TILE`` that fits one
-    block and that the cost model rates cheapest (the larger one on a tie);
-    where none fits, ``("staged", t)``, the largest staged tile whose four
-    stages fit, if the channels allow it; else the cheapest smaller fused
-    tile. Raise ``ValueError`` when no route takes the shape. (bfloat16's
-    staged stages fit at every tile and take their own 128-pixel tiles,
-    :func:`staged_plan`: ``t`` is then ``STAGED_TILE`` and unused.)"""
+    """The route and square output tile an NHWC input of ``shape`` takes.
+    The fused route's tile is the one of at least ``FUSED_MIN_TILE`` that
+    fits one block and that the cost model rates cheapest (the larger one on
+    a tie). In bfloat16 the staged route (:func:`staged_takes`) takes the
+    pass where its cost model's time (:func:`staged_pass_ps`, the
+    intermediates' bytes through device memory counted) is below the fused
+    tile's (:func:`fused_pass_ps`, its halo recompute and padding counted),
+    or where no such fused tile fits. In float32 the fused tile is taken
+    where one fits; else ``("staged", t)``, the largest staged tile whose
+    four stages fit, if the channels allow it. Else the cheapest smaller
+    fused tile. Raise ``ValueError`` when no route takes the shape.
+    (bfloat16's staged stages take their own tiles, :func:`staged_plan`:
+    ``t`` is then ``STAGED_TILE`` and unused.)"""
     elem = torch.tensor([], dtype=compute_dtype).element_size()
-    _, H, W, c_in = shape
+    B, H, W, c_in = shape
     fits = [t for t in TILE_CANDIDATES
             if fused_smem_bytes(c_in, c_out, t, t, elem) <= MAX_SHARED_BYTES]
+    big = [t for t in fits if t >= FUSED_MIN_TILE]
 
     def cheapest(tiles):
-        return "fused", min(tiles, key=lambda t: fused_cost(c_in, c_out, t, t, H, W, elem))
+        return min(tiles, key=lambda t: fused_cost(c_in, c_out, t, t, H, W, elem))
 
-    if any(t >= FUSED_MIN_TILE for t in fits):
-        return cheapest([t for t in fits if t >= FUSED_MIN_TILE])
+    if elem == 2 and staged_takes(c_in, c_out):
+        if big:
+            t = cheapest(big)
+            fused_ps = fused_pass_ps(B, fused_cost(c_in, c_out, t, t, H, W, elem))
+            if fused_ps <= staged_pass_ps(B, H, W, c_in, c_out):
+                return "fused", t
+        return "staged", STAGED_TILE
+    if big:
+        return "fused", cheapest(big)
     kstep = _CFG[elem]["kstep"]
-    if c_in % kstep == 0 and c_out % kstep == 0:
+    if elem == 4 and c_in % kstep == 0 and c_out % kstep == 0:
         for t in (STAGED_TILE, *[c for c in TILE_CANDIDATES if c < STAGED_TILE]):
             if max(staged_smem_bytes(k, ci, t, t, elem)
                    for k, ci in ((3, c_in), (1, c_out), (3, c_out))) <= MAX_SHARED_BYTES:
                 return "staged", t
     if fits:
-        return cheapest(fits)
+        return "fused", cheapest(fits)
     raise ValueError(
         f"conv pass {c_in}->{c_out} channels fits no fused tile, and the staged route "
-        f"takes channels in multiples of {kstep} only"
+        f"takes channels in multiples of {kstep if elem == 4 else 8} only"
     )
 
 
@@ -429,12 +562,17 @@ def conv_pass_2d_design(shape, c_out: int, compute_dtype) -> str:
     route, tile = conv_pass_2d_plan(shape, c_out, compute_dtype)
     if route == "staged" and compute_dtype == torch.bfloat16:
         B, H, W, c_in = shape
-        boxes = "/".join(sorted({f"{p['bh']}x{p['bw']}" for p in (
-            staged_plan(B, H - 2, W - 2, 3, c_in, c_out),
-            staged_plan(B, H - 4, W - 4, 3, c_out, c_out))}))
-        return (f"wgmma m64n256k16 bf16, A and B from 128-byte swizzled shared memory, staged, "
-                f"one persistent launch a stage, {GEMM_M}-pixel ({boxes} box) x {GEMM_N}-channel "
-                f"tiles, 2 consumer warpgroups and a producer warp")
+        parts = []
+        for k, ci, h, w in ((3, c_in, H, W), (1, c_out, H - 2, W - 2), (3, c_out, H - 2, W - 2)):
+            if ci % 8:
+                parts.append(f"{k}x{k} {ci}->{c_out} on the CUDA cores")
+                continue
+            p = staged_plan(B, h - k + 1, w - k + 1, k, ci, c_out)
+            mma = "m64n256k16" if p["bn"] == GEMM_N else "m64n128k16 weights as A"
+            parts.append(f"{k}x{k} {ci}->{c_out} {mma}, {p['bm']} x {p['bn']} tiles "
+                         f"({p['bh']}x{p['bw']} boxes)")
+        return ("staged, one persistent launch a stage, wgmma A and B from 128-byte swizzled "
+                "shared memory, 2 consumer warpgroups and a producer warp: " + "; ".join(parts))
     mma = ("wgmma m64n64k16 bf16" if compute_dtype == torch.bfloat16
            else "wgmma m64n64k8 3xTF32")
     where = "fused" if route == "fused" else "staged, one launch a stage"
@@ -522,5 +660,11 @@ def _(x, w0, w1, w2, w3, b0, b1, b2, b3, compute_dtype):
     kernels.check_launch(rc, "conv_pass_2d")
     kernels.count_launch(conv_pass_2d)
     if route == "staged" and compute_dtype == torch.bfloat16:
-        count("k1.staged_tiles", staged_tiles(x.shape, c_out))
+        work = staged_work(x.shape, c_out)
+        if "k1.staged_tiles" in work:
+            count("k1.staged_tiles", work["k1.staged_tiles"])
+        if "k1.staged_tiles_n64" in work:
+            count("k1.staged_tiles_n64", work["k1.staged_tiles_n64"])
+        if "k1.first_pixels" in work:
+            count("k1.first_pixels", work["k1.first_pixels"])
     return out

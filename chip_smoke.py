@@ -13,11 +13,13 @@ Phases, each failing the run (non-zero exit) if it fails:
    each shape takes, its TFLOP/s and its plain, cuDNN and bound times; then
    ``[K1-wide]``: the wrapper's Python mirrors of the kernel's size and cost
    formulas against the library's, and K1 at the passes of
-   ``examples/real-data``'s 256-fmap model (tile batch 16), whose bottom
-   pass takes the staged route (in bf16 the persistent implicit GEMM: the
-   ptxas report of ``conv_stage_kernel_persistent``, which must show no
-   spill and no serialised wgmma, and each of its four stages timed beside
-   its bound); then ``[K1-ragged]``: the same checks at
+   ``examples/real-data``'s 256-fmap model (tile batch 16), whose passes
+   take the staged route in bf16 (the persistent implicit GEMM, 128 x 256
+   or 256 x 64 tiles, and a first stage on the CUDA cores: the ptxas report
+   of each of these kernels, which must show no spill and no serialised
+   wgmma; each stage of each pass timed beside its bound; each pass on the
+   parent commit's route and on the new one); then ``[K1-ragged]``: the
+   same checks at
    ragged and narrow shapes (partial edge tiles, 24 and 72 channels, three
    input channels, B = 1);
 4. K2, the 3x3 filter gradient: the kernel against its plain version at the
@@ -554,6 +556,7 @@ def phase_k1_plans():
     source's size and cost formulas: hold them against the library's at
     every candidate tile of every pass of both models, both types."""
     lib = kernels.load("conv_pass", conv_pass._SIGNATURES)
+    MAX_SHARED = conv_pass.MAX_SHARED_BYTES
     n = 0
     for model in (MODEL, MODEL_WIDE):
         for _, (_, H, W, c_in), c_out in pass_shapes(1, model):
@@ -573,11 +576,14 @@ def phase_k1_plans():
                     n += 1
     print(f"[K1-wide] the wrapper's mirrors of the size and cost formulas equal the library's "
           f"at {n} (pass, type, tile) cases of the 64- and 256-fmap models", flush=True)
-    buf = (ctypes.c_longlong * 11)()
-    keys = ("bh", "bw", "tiles_y", "tiles_x", "m_tiles", "n_tiles", "tiles", "n_cb", "chunks",
-            "slots", "smem")
+    buf = (ctypes.c_longlong * 16)()
+    keys = ("bm", "bn", "bh", "bw", "tiles_y", "tiles_x", "m_tiles", "n_tiles", "tiles", "n_cb",
+            "chunks", "taps", "box_w", "a_bytes", "slots", "smem")
     cases = [(B, s, s, k, ci, 768) for B in (1, K1_WIDE_BATCH, 128)
              for s, k, ci in ((122, 3, 256), (122, 1, 768), (120, 3, 768))]
+    cases += [(B, s, s, k, ci, c) for B in (1, K1_WIDE_BATCH, 128)
+              for s, k, ci, c in ((250, 1, 256, 256), (248, 3, 256, 256), (238, 3, 1024, 64),
+                                  (238, 1, 64, 64), (236, 3, 64, 64))]
     cases += [(1, 33, 37, 3, 24, 72), (2, 41, 41, 3, 96, 24), (1, 62, 62, 3, 256, 4640)]
     for c in cases:
         lib.conv_pass_2d_staged_plan(*c, buf)
@@ -587,6 +593,26 @@ def phase_k1_plans():
                  f"mirror {want}")
     print(f"[K1-wide] the bf16 staged route's plan mirror equals the library's at {len(cases)} "
           f"stage shapes", flush=True)
+    # the cost model that chooses the bf16 route, at every pass of both
+    # models and three tile batches, at every candidate fused tile
+    cost = (ctypes.c_longlong * 2)()
+    n = 0
+    for model in (MODEL, MODEL_WIDE):
+        for B in (1, K1_WIDE_BATCH, 128):
+            for _, (_, H, W, c_in), c_out in pass_shapes(B, model):
+                for t in conv_pass.TILE_CANDIDATES:
+                    lib.conv_pass_2d_route_cost(B, H, W, c_in, c_out, t, t, cost)
+                    fits = conv_pass.fused_smem_bytes(c_in, c_out, t, t, 2) <= MAX_SHARED
+                    want = [conv_pass.staged_pass_ps(B, H, W, c_in, c_out)
+                            if conv_pass.staged_takes(c_in, c_out) else -1,
+                            conv_pass.fused_pass_ps(B, conv_pass.fused_cost(
+                                c_in, c_out, t, t, H, W, 2)) if fits else -1]
+                    if list(cost) != want:
+                        fail(f"K1 route cost mirror differs from the library at {(B, H, W)} "
+                             f"{c_in}->{c_out}, tile {t}: library {list(cost)}, mirror {want}")
+                    n += 1
+    print(f"[K1-wide] the route cost model's mirrors equal the library's at {n} (pass, batch, "
+          f"tile) cases", flush=True)
 
 
 def ptxas_entry(log, symbol):
@@ -613,60 +639,136 @@ def ptxas_entry(log, symbol):
     return None
 
 
-def phase_k1_staged(device, batch=K1_WIDE_BATCH):
-    """The bf16 staged route of the 256-fmap bottom pass: the persistent
-    kernel's ptxas report (no spill, no wgmma serialised), then each of the
-    four stages launched alone at tile batch ``batch``, against its plain
-    stage and timed beside its bound. Returns the stages' rows."""
-    log = kernels.BUILD_LOG.get("conv_pass")
-    rep = ptxas_entry(log, "conv_stage_kernel_persistent") if log else None
-    if rep is None:
-        print("[K1-wide] conv_stage_kernel_persistent: no ptxas report (library built earlier)")
+# the bf16 staged route's kernels, as ptxas names them
+K1_STAGED_KERNELS = ("conv_stage_kernel_persistentILi256", "conv_stage_kernel_persistentILi64",
+                     "conv_stage_kernel_first")
+
+
+def _stage_run(lib, x, packed, b, out, k):
+    """One stage of the bf16 staged route launched alone."""
+    B, H, W, ci = x.shape
+    kernels.check_launch(lib.conv_pass_2d_stage_launch(
+        x.data_ptr(), packed.data_ptr(), b.data_ptr(), out.data_ptr(), B, H, W, k, ci,
+        out.shape[-1], torch.cuda.current_stream().cuda_stream), "conv_pass_2d stage")
+
+
+def _route_run(lib, x, params, route, tile):
+    """A bf16 pass on ``route`` at ``tile`` through the library's entry
+    points, the weights packed for that route each call (as the wrapper
+    does)."""
+    B, H, W, c_in = x.shape
+    c_out = params["conv0"]["w"].shape[-1]
+    ws = conv_pass.pack_pass([params[f"conv{i}"]["w"].bfloat16() for i in range(4)], route,
+                             c_in, c_out)
+    bs = [params[f"conv{i}"]["b"].float().contiguous() for i in range(4)]
+    args = [x.data_ptr()]
+    for w, b in zip(ws, bs):
+        args += [w.data_ptr(), b.data_ptr()]
+    out = torch.empty((B, H - 4, W - 4, c_out), dtype=torch.bfloat16, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if route == "fused":
+        rc = lib.conv_pass_2d_launch(*args, out.data_ptr(), B, H, W, c_in, c_out, tile, tile, 1,
+                                     stream)
     else:
-        print(f"[K1-wide] ptxas conv_stage_kernel_persistent: {rep['registers']} registers, "
+        scratch = torch.empty((2, B, H - 2, W - 2, c_out), dtype=torch.bfloat16, device=x.device)
+        rc = lib.conv_pass_2d_staged_launch(*args, out.data_ptr(), scratch[0].data_ptr(),
+                                            scratch[1].data_ptr(), B, H, W, c_in, c_out, tile,
+                                            tile, 1, stream)
+    kernels.check_launch(rc, f"conv_pass_2d {route}")
+    return out
+
+
+def phase_k1_staged(device, batch=K1_WIDE_BATCH):
+    """The bf16 staged route of the 256-fmap model's three passes: the ptxas
+    report of each of its kernels (no spill, no wgmma serialised), then
+    every stage of each pass launched alone at tile batch ``batch``, against
+    its plain stage and timed beside its bound, and each pass on the route
+    the parent commit took (``down`` and ``up`` fused at the old plan's
+    tile; ``bottom`` was staged there too) against the new one, both held
+    against the plain pass. Returns the stages' and passes' rows."""
+    log = kernels.BUILD_LOG.get("conv_pass")
+    for symbol in K1_STAGED_KERNELS:
+        rep = ptxas_entry(log, symbol) if log else None
+        if rep is None:
+            print(f"[K1-wide] {symbol}: no ptxas report (library built earlier)")
+            continue
+        print(f"[K1-wide] ptxas {symbol}: {rep['registers']} registers, "
               f"spill stores {rep['spill_stores']} B, spill loads {rep['spill_loads']} B, "
               f"C7512 {'yes' if rep['serialized'] else 'no'}", flush=True)
         if rep["spill_stores"] or rep["spill_loads"] or rep["serialized"]:
-            fail(f"conv_stage_kernel_persistent: ptxas spills or serialises its wgmmas: {rep}")
+            fail(f"{symbol}: ptxas spills or serialises its wgmmas: {rep}")
     lib = kernels.load("conv_pass", conv_pass._SIGNATURES)
-    (_, (_, H, W, c_in), c_out), = [p for p in pass_shapes(1, MODEL_WIDE) if p[0] == "bottom"]
     gen = torch.Generator().manual_seed(4)
     rows = []
-    for i, (k, ci, h) in enumerate(((3, c_in, H), (1, c_out, H - 2), (1, c_out, H - 2),
-                                    (3, c_out, H - 2))):
-        x = torch.rand((batch, h, h, ci), generator=gen).to(device).bfloat16()
-        w = (torch.randn((k, k, ci, c_out), generator=gen) / math.sqrt(k * k * ci)).to(device)
-        b = ((torch.rand((c_out,), generator=gen) * 2 - 1) / math.sqrt(k * k * ci)).to(device)
-        packed = conv_pass.pack_stage_persistent(w.bfloat16())
-        out = torch.empty((batch, h - k + 1, h - k + 1, c_out), dtype=torch.bfloat16,
-                          device=device)
-        stream = torch.cuda.current_stream().cuda_stream
+    for name, (_, H, W, c_in), c_out in pass_shapes(1, MODEL_WIDE):
+        for i, (k, ci, h) in enumerate(((3, c_in, H), (1, c_out, H - 2), (1, c_out, H - 2),
+                                        (3, c_out, H - 2))):
+            x = torch.rand((batch, h, h, ci), generator=gen).to(device).bfloat16()
+            w = (torch.randn((k, k, ci, c_out), generator=gen) / math.sqrt(k * k * ci)).to(device)
+            b = ((torch.rand((c_out,), generator=gen) * 2 - 1) / math.sqrt(k * k * ci)).to(device)
+            packed = conv_pass.pack_stage_bf16(w.bfloat16())
+            out = torch.empty((batch, h - k + 1, h - k + 1, c_out), dtype=torch.bfloat16,
+                              device=device)
 
-        def run():
-            kernels.check_launch(lib.conv_pass_2d_stage_launch(
-                x.data_ptr(), packed.data_ptr(), b.data_ptr(), out.data_ptr(), batch, h, h, k,
-                ci, c_out, stream), "conv_pass_2d stage")
+            def run():
+                _stage_run(lib, x, packed, b, out, k)
 
-        run()
-        ref = torch.relu(torch.nn.functional.conv2d(
-            x.float().permute(0, 3, 1, 2), w.bfloat16().float().permute(3, 2, 0, 1), b))
-        ref = ref.bfloat16().permute(0, 2, 3, 1)
-        err = float((out.float() - ref.float()).abs().max())
+            run()
+            ref = torch.relu(torch.nn.functional.conv2d(
+                x.float().permute(0, 3, 1, 2), w.bfloat16().float().permute(3, 2, 0, 1), b))
+            ref = ref.bfloat16().permute(0, 2, 3, 1)
+            err = float((out.float() - ref.float()).abs().max())
+            atol = 2e-2 * float(ref.float().abs().max())
+            if not err <= atol:
+                fail(f"[K1-wide] {name} stage {i + 1}: max abs err {err:.3g} > {atol:.3g}")
+            ms = cuda_ms(run, reps=10)
+            flops = 2 * batch * (h - k + 1) ** 2 * k * k * ci * c_out
+            nbytes = 2 * (x.numel() + out.numel() + w.numel()) + 4 * c_out
+            bound_ms = 1e3 * max(flops / PEAK_OPS[torch.bfloat16], nbytes / HBM_BYTES_PER_S)
+            if ci % 8:
+                how = "CUDA cores"
+            else:
+                plan = conv_pass.staged_plan(batch, h - k + 1, h - k + 1, k, ci, c_out)
+                how = (f"{plan['bm']} x {plan['bn']} tiles, {plan['bh']}x{plan['bw']} boxes, "
+                       f"{plan['tiles']} tiles of {plan['chunks']} chunks")
+            print(f"[K1-wide] {name} stage {i + 1} {k}x{k} {ci}->{c_out} at {h}^2 ({how}): "
+                  f"max_abs_err {err:.3g} (atol {atol:.3g}); {ms:.3f} ms, bound "
+                  f"{bound_ms:.3f} ms, {100 * bound_ms / ms:.1f}% of it", flush=True)
+            rows.append({"pass": name, "stage": i + 1, "ms": ms, "bound_ms": bound_ms,
+                         "max_abs_err": err})
+            del x, out, ref
+        torch.cuda.empty_cache()
+    for name, shape, c_out in pass_shapes(batch, MODEL_WIDE):
+        params = _pass_params(shape[-1], c_out, gen, device)
+        x = torch.rand(shape, generator=gen).to(device).bfloat16()
+        ref = conv_pass_2d_plain(x, params, torch.bfloat16)
         atol = 2e-2 * float(ref.float().abs().max())
-        if not err <= atol:
-            fail(f"[K1-wide] bottom stage {i + 1}: max abs err {err:.3g} > {atol:.3g}")
-        ms = cuda_ms(run, reps=10)
-        flops = 2 * batch * (h - k + 1) ** 2 * k * k * ci * c_out
-        nbytes = 2 * (x.numel() + out.numel() + w.numel()) + 4 * c_out
-        bound_ms = 1e3 * max(flops / PEAK_OPS[torch.bfloat16], nbytes / HBM_BYTES_PER_S)
-        plan = conv_pass.staged_plan(batch, h - k + 1, h - k + 1, k, ci, c_out)
-        print(f"[K1-wide] bottom stage {i + 1} {k}x{k} {ci}->{c_out} at {h}^2 "
-              f"({plan['bh']}x{plan['bw']} boxes, {plan['tiles']} tiles of {plan['chunks']} "
-              f"chunks): max_abs_err {err:.3g} (atol {atol:.3g}); {ms:.3f} ms, bound "
-              f"{bound_ms:.3f} ms, {100 * bound_ms / ms:.1f}% of it", flush=True)
-        rows.append({"stage": i + 1, "ms": ms, "bound_ms": bound_ms, "max_abs_err": err})
-        del x, out, ref
-    torch.cuda.empty_cache()
+        B, H, W, c_in = shape
+        routes = {"new": conv_pass.conv_pass_2d_plan(shape, c_out, torch.bfloat16)}
+        fits = [t for t in conv_pass.TILE_CANDIDATES if t >= conv_pass.FUSED_MIN_TILE and
+                conv_pass.fused_smem_bytes(c_in, c_out, t, t, 2) <= conv_pass.MAX_SHARED_BYTES]
+        routes["parent"] = ("fused", min(fits, key=lambda t: conv_pass.fused_cost(
+            c_in, c_out, t, t, H, W, 2))) if fits else routes["new"]
+        times = {}
+        for side in ("parent", "new"):
+            route, tile = routes[side]
+            err = float((_route_run(lib, x, params, route, tile).float() - ref.float()).abs().max())
+            if not err <= atol:
+                fail(f"[K1-wide] {name} on the {side} route {route}: max abs err {err:.3g}")
+            times[side] = cuda_ms(lambda: _route_run(lib, x, params, route, tile), reps=5)
+        # in turns: parent, new, new, parent
+        for side in ("new", "parent"):
+            route, tile = routes[side]
+            times[side] = (times[side] + cuda_ms(
+                lambda: _route_run(lib, x, params, route, tile), reps=5)) / 2
+        print(f"[K1-wide] {name} pass {tuple(shape)}->{c_out}: parent's route "
+              f"{routes['parent'][0]} {routes['parent'][1]} {times['parent']:.3f} ms, new "
+              f"{routes['new'][0]} {times['new']:.3f} ms ({times['parent'] / times['new']:.2f}x)",
+              flush=True)
+        rows.append({"pass": name, "parent_ms": times["parent"], "new_ms": times["new"],
+                     "parent_route": routes["parent"][0], "new_route": routes["new"][0]})
+        del x, ref
+        torch.cuda.empty_cache()
     return rows
 
 

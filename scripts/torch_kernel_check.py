@@ -21,8 +21,8 @@ K1's fused route through its C entry point at every square tile of 6 or more tha
 tile choice assigns, to see how the tile size sets its speed; every tile must
 give the bits of the tile the wrapper picks. ``wide`` is ``[K1-wide]``:
 the plan mirrors against the library, K1 at the passes of
-``examples/real-data``'s model and its bf16 staged bottom pass stage by
-stage. ``greedy`` clusters synthetic blob
+``examples/real-data``'s model, its bf16 staged passes stage by stage and
+each pass on the parent commit's route against the new one. ``greedy`` clusters synthetic blob
 embeddings (512^2 and 128^3) on the card, timed, against the CPU.
 Exits non-zero on a failure.
 """

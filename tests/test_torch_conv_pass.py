@@ -101,21 +101,25 @@ def test_pass_rejects_what_the_kernel_does_not_take(small_params, bad):
 
 # The route and tile of every pass at the widths of the repo's 2D TOMLs
 # (computed from the source's size and cost formulas; chip_smoke.py holds
-# those mirrors against the library on the card). The wgmma design's ring
-# holds one 64-column n-block, so a fused tile fits at any width: the staged
-# route takes a pass where no fused tile of at least FUSED_MIN_TILE fits,
-# and a smaller fused tile is left for a pass the staged route cannot take
-# (the 256-fmap first pass in float32: cin = 1).
+# those mirrors against the library on the card). float32: the wgmma
+# design's ring holds one 64-column n-block, so a fused tile fits at any
+# width: the staged route takes a pass where no fused tile of at least
+# FUSED_MIN_TILE fits, and a smaller fused tile is left for a pass the
+# staged route cannot take (the 256-fmap first pass: cin = 1). bfloat16:
+# the staged route's persistent kernels (and its CUDA-core first stage)
+# take every pass of both models, where the cost model rates them faster
+# than the fused tile, as the card measured them (the 64-fmap passes too:
+# 2.0-2.8x at tile batch 128, PERF.md).
 _EXAMPLE_PLANS = {
     "2d": {
-        "down": {"float32": ("fused", 16), "bfloat16": ("fused", 16)},
-        "bottom": {"float32": ("fused", 8), "bfloat16": ("fused", 12)},
-        "up": {"float32": ("fused", 14), "bfloat16": ("fused", 20)},
+        "down": {"float32": ("fused", 16), "bfloat16": ("staged", 16)},
+        "bottom": {"float32": ("fused", 8), "bfloat16": ("staged", 16)},
+        "up": {"float32": ("fused", 14), "bfloat16": ("staged", 16)},
     },
     "real-data": {
-        "down": {"float32": ("fused", 6), "bfloat16": ("fused", 10)},
+        "down": {"float32": ("fused", 6), "bfloat16": ("staged", 16)},
         "bottom": {"float32": ("staged", 16), "bfloat16": ("staged", 16)},
-        "up": {"float32": ("fused", 14), "bfloat16": ("fused", 20)},
+        "up": {"float32": ("fused", 14), "bfloat16": ("staged", 16)},
     },
 }
 
@@ -127,6 +131,7 @@ def test_plan_of_every_pass_of_the_example_widths(toml):
 
     from cellulus_tpu_torch.configs import ExperimentConfig
     from cellulus_tpu_torch.models.geometry import conv_pass_inputs
+    from cellulus_tpu_torch.ops import conv_pass as k1
     from cellulus_tpu_torch.ops.conv_pass import (
         FUSED_MIN_TILE,
         MAX_SHARED_BYTES,
@@ -155,6 +160,12 @@ def test_plan_of_every_pass_of_the_example_widths(toml):
                 assert fused_smem_bytes(c_in, c_out, tile, tile, elem) <= MAX_SHARED_BYTES
                 if tile < FUSED_MIN_TILE:  # only where the staged route cannot take it
                     assert c_in % kstep or c_out % kstep
+            elif elem == 2:  # staged where its cost is below the cheapest fused tile's
+                fits = [t for t in big
+                        if fused_smem_bytes(c_in, c_out, t, t, elem) <= MAX_SHARED_BYTES]
+                staged = k1.staged_pass_ps(128, *size, c_in, c_out)
+                assert all(staged < k1.fused_pass_ps(128, k1.fused_cost(
+                    c_in, c_out, t, t, *size, elem)) for t in fits)
             else:  # staged only where no fused tile of FUSED_MIN_TILE or more fits
                 assert all(fused_smem_bytes(c_in, c_out, t, t, elem) > MAX_SHARED_BYTES
                            for t in big)
@@ -166,8 +177,8 @@ def test_plan_of_every_pass_of_the_example_widths(toml):
 def test_plan_of_every_pass_of_the_benchmark_configuration(dtype):
     """The benchmark's 2D configuration (``portbench/configs/cellulus-2d-f256
     .json``: 256 fmaps, x3, 252^2 tiles, a TTA tile batch of 128 copies)
-    takes the routes and tiles of examples/real-data's model: down fused,
-    bottom staged, up fused."""
+    takes the routes and tiles of examples/real-data's model: in float32
+    down fused, bottom staged, up fused; in bfloat16 all three staged."""
     import json
     from pathlib import Path
 
@@ -191,10 +202,70 @@ def test_a_pass_no_route_takes_raises():
     """Channels that neither fit a fused tile nor stream in the staged
     route's slices raise; the pass is never handed to a library. With the
     ring one or two 64-column n-blocks wide, a fused 1 x 1 tile fits up to
-    4,616 output channels (bf16, 256 inputs), so the threshold sits there."""
+    4,616 output channels (bf16, 256 inputs); the bf16 staged route takes
+    output channels in multiples of 8 (TMA's 16-byte strides), so a width
+    past 4,616 that is no multiple of 8 raises, and one of 4,616 or fewer
+    that is no multiple of 8 takes the 1 x 1 fused tile."""
     from cellulus_tpu_torch.ops.conv_pass import conv_pass_2d_plan
 
     with pytest.raises(ValueError, match="fits no fused tile"):
-        conv_pass_2d_plan((1, 64, 64, 256), 4632, torch.bfloat16)
+        conv_pass_2d_plan((1, 64, 64, 256), 4628, torch.bfloat16)
     assert conv_pass_2d_plan((1, 64, 64, 256), 4640, torch.bfloat16) == ("staged", 16)
-    assert conv_pass_2d_plan((1, 64, 64, 256), 4616, torch.bfloat16) == ("fused", 1)
+    assert conv_pass_2d_plan((1, 64, 64, 256), 4616, torch.bfloat16) == ("staged", 16)
+    assert conv_pass_2d_plan((1, 64, 64, 256), 4612, torch.bfloat16) == ("fused", 1)
+
+
+_F256 = [("down", (252, 252), 1, 256), ("bottom", (124, 124), 256, 768),
+         ("up", (240, 240), 1024, 64)]
+
+
+@pytest.mark.parametrize("batch", [16, 128])
+@pytest.mark.parametrize("name,size,c_in,c_out", _F256, ids=[p[0] for p in _F256])
+def test_route_of_the_256_fmap_passes(batch, name, size, c_in, c_out):
+    """In bfloat16 each pass of the 256-fmap model takes the staged route at
+    ``[K1-wide]``'s tile batch (16) and the cell's (128): its first stage on
+    the CUDA cores where the input has one channel, the rest on the
+    persistent kernel (128 x 256 tiles, or 256 x 64 where the pass has 64
+    output channels); the cost model rates it at least 1.5 times as fast as
+    the cheapest fused tile, where one fits. In float32 the routes stay the
+    fused 6 x 6 and 14 x 14 tiles and the staged bottom pass."""
+    from cellulus_tpu_torch.ops import conv_pass as k1
+
+    shape = (batch, *size, c_in)
+    assert k1.conv_pass_2d_plan(shape, c_out, torch.bfloat16) == ("staged", 16)
+    assert k1.conv_pass_2d_plan(shape, c_out, torch.float32) == {
+        "down": ("fused", 6), "bottom": ("staged", 16), "up": ("fused", 14)}[name]
+    fits = [t for t in k1.TILE_CANDIDATES if t >= k1.FUSED_MIN_TILE
+            and k1.fused_smem_bytes(c_in, c_out, t, t, 2) <= k1.MAX_SHARED_BYTES]
+    staged = k1.staged_pass_ps(batch, *size, c_in, c_out)
+    for t in fits:
+        assert 3 * staged < 2 * k1.fused_pass_ps(batch, k1.fused_cost(c_in, c_out, t, t, *size,
+                                                                      2))
+    work = k1.staged_work(shape, c_out)
+    assert ("k1.first_pixels" in work) == (c_in == 1)
+    assert ("k1.staged_tiles_n64" in work) == (c_out == 64)
+    design = k1.conv_pass_2d_design(shape, c_out, torch.bfloat16)
+    assert ("CUDA cores" in design) == (c_in == 1)
+    assert ("m64n128k16 weights as A, 256 x 64 tiles" in design) == (c_out == 64)
+
+
+@pytest.mark.parametrize("batch", [16, 128])
+@pytest.mark.parametrize("num_fmaps", [64, 24])
+def test_float32_routes_unchanged_and_narrow_bf16_routes(batch, num_fmaps):
+    """float32 keeps its routes and tiles at the 64- and 24-fmap widths (the
+    examples/2d model, the checkpoint sweep's); bfloat16 takes, per pass,
+    the route the cost model rates faster: at 64 fmaps every pass staged
+    (the card measured the staged route 2.0-2.8x faster there), at 24 fmaps
+    the bottom pass fused (72 channels: the staged route's 256-column tiles
+    would be mostly padding), the others staged."""
+    from cellulus_tpu_torch.models.geometry import conv_pass_inputs
+    from cellulus_tpu_torch.ops import conv_pass as k1
+
+    f32 = {64: {"down": ("fused", 16), "bottom": ("fused", 8), "up": ("fused", 14)},
+           24: {"down": ("fused", 16), "bottom": ("fused", 16), "up": ("fused", 14)}}[num_fmaps]
+    bf16 = {64: {"down": "staged", "bottom": "staged", "up": "staged"},
+            24: {"down": "staged", "bottom": "fused", "up": "staged"}}[num_fmaps]
+    for name, size, c_in, c_out in conv_pass_inputs((252, 252), [[2, 2]], 1, num_fmaps, 3, 64):
+        shape = (batch, *size, c_in)
+        assert k1.conv_pass_2d_plan(shape, c_out, torch.float32) == f32[name], name
+        assert k1.conv_pass_2d_plan(shape, c_out, torch.bfloat16)[0] == bf16[name], name

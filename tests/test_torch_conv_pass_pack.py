@@ -8,14 +8,19 @@ Per n-block of 64 columns the pack holds the stage's K rows in 16-byte slabs
 byte offset) and 128 between 8-column groups (its stride byte offset).
 float32 packs hi = tf32(w) and lo = w - hi as two such arrays.
 
-The bfloat16 staged route (``conv_stage_kernel_persistent``) reads another
-pack (``pack_stage_persistent``): per 256-column n-tile and chunk (one tap x
-64 input channels), 256 rows of 64 K values in 128 bytes, 16-byte units
-swizzled by the row mod 8, read by a K-major 128-byte-swizzle descriptor.
-Its plan (``staged_plan``, ``staged_tile``) is held against a g++ build of
-the source's "K1 staged plan" lines, and its data path (TMA boxes, the pack,
-both descriptors, the epilogue's swizzled tile and the clipped TMA stores)
-is emulated in numpy against the convolution."""
+The bfloat16 staged route (``conv_stage_kernel_persistent<BN>``) reads
+another pack (``pack_stage_persistent``): per BN-column n-tile (BN = 256, or
+64 where the pass has 64 output channels or fewer) and chunk (one tap x 64
+input channels), BN rows of 64 K values in 128 bytes, 16-byte units
+swizzled by the row mod 8, read by a K-major 128-byte-swizzle descriptor;
+a stage of fewer than 8 input channels (``conv_stage_kernel_first``, on the
+CUDA cores) reads the plain weights. The plans (``staged_plan``,
+``staged_tile``, ``first_plan``) and the cost model that chooses the route
+(``staged_pass_ps``, ``fused_pass_ps``) are held against a g++ build of the
+source's "K1 staged plan" lines, and the data paths (TMA boxes, the pack,
+both descriptors, the epilogue's swizzled tiles and the clipped TMA stores;
+the CUDA-core stage's pixel groups) are emulated in numpy against the
+convolution."""
 
 import re
 import shutil
@@ -59,7 +64,7 @@ def _cases():
             elem = dtype.itemsize
             routes = ["fused"]
             kstep = 16 if elem == 2 else 8
-            if c_in % kstep == 0 and c % kstep == 0:
+            if (c_in % kstep == 0 and c % kstep == 0) or (elem == 2 and k1.staged_takes(c_in, c)):
                 routes.append("staged")
             for route in routes:
                 for i, (kk, ci) in enumerate(((3, c_in), (1, c), (1, c), (3, c))):
@@ -75,12 +80,12 @@ def _persistent(route, dtype):
 
 def _unpack_persistent(packed, k, c_in, c):
     """Inverse of ``pack_stage_persistent``: undo the swizzle, then (n-tile,
-    tap, block, n, k) -> (k, k, c_in, c)."""
+    block, tap, n, k) -> (k, k, c_in, c)."""
     n_t, chunks, rows, kk = packed.shape
     n_cb = chunks // (k * k)
     units = packed.reshape(n_t, chunks, rows, 8, 8)
     plain = units[:, :, torch.arange(rows)[:, None], k1.sw128_units(rows)]  # XOR undoes XOR
-    w = plain.reshape(n_t, k * k, n_cb, rows, kk).permute(1, 2, 4, 0, 3)
+    w = plain.reshape(n_t, n_cb, k * k, rows, kk).permute(2, 1, 4, 0, 3)
     return w.reshape(k * k, n_cb * kk, n_t * rows)[:, :c_in, :c].reshape(k, k, c_in, c)
 
 
@@ -136,8 +141,12 @@ def test_pack_is_a_permutation_with_zero_padding(k, c_in, c, dtype, sb, route):
     exactly one place; everything else in the pack is zero (the bf16 staged
     route: its own pack, :func:`pack_stage_persistent`)."""
     w = _weights(k, c_in, c, dtype)
+    if _persistent(route, dtype) and c_in % 8:  # the CUDA-core stage reads w as it is
+        assert torch.equal(k1.pack_stage_bf16(w), w)
+        return
     if _persistent(route, dtype):
         packed = k1.pack_stage_persistent(w)
+        assert torch.equal(k1.pack_stage_bf16(w), packed)
         assert packed.dtype == dtype
         assert torch.equal(_unpack_persistent(packed, k, c_in, c), w)
         placed = k1.pack_stage_persistent(torch.ones_like(w)) != 0
@@ -188,23 +197,34 @@ def test_chunks_and_bytes_equal_the_plan(k, c_in, c, dtype, sb, route):
     contiguous, and read through the wgmma descriptor's addressing (K-major,
     no swizzle, LBO 1024, SBO 128) it gives the stage's K rows. The bf16
     staged route: ``staged_plan``'s chunks of 32 KB a 256-column n-tile,
-    read through the 128-byte-swizzle descriptor four k steps a chunk."""
+    read through the 128-byte-swizzle descriptor four k steps a chunk (8
+    KB a tap of a 64-column n-tile where the pass has 64 output channels or
+    fewer, a chunk the K taps of a tap row).
+    Its CUDA-core stage (fewer than 8 input channels) holds the plain
+    weights as f32 in shared memory: ``first_plan``'s bytes."""
+    if _persistent(route, dtype) and c_in % 8:
+        w = _weights(k, c_in, c, dtype, seed=2)
+        assert k1.pack_stage_bf16(w).numel() * 4 == k1.first_plan(1, 1, 1, k, c_in, c)["smem"]
+        return
     if _persistent(route, dtype):
         plan = k1.staged_plan(1, 1, 1, k, c_in, c)
+        bn = plan["bn"]
+        assert bn == (64 if c <= 64 else 256)
         w = _weights(k, c_in, c, dtype, seed=2)
         packed = k1.pack_stage_persistent(w)
-        assert packed.numel() * 2 == plan["n_tiles"] * plan["chunks"] * k1.GEMM_B_BYTES
+        assert packed.numel() * 2 == plan["n_tiles"] * plan["chunks"] * plan["b_bytes"]
         flat = packed.float().reshape(-1).numpy()
-        wide = F.pad(w.float(), (0, plan["n_tiles"] * k1.GEMM_N - c,
+        wide = F.pad(w.float(), (0, plan["n_tiles"] * bn - c,
                                  0, plan["n_cb"] * k1.GEMM_K - c_in)).numpy()
+        taps = k * k * plan["n_cb"]  # a copy holds plan["taps"] of them, in this order
         for nt in range(plan["n_tiles"]):
-            for ch in range(plan["chunks"]):
-                tap, cb = divmod(ch, plan["n_cb"])
-                start = (nt * plan["chunks"] + ch) * k1.GEMM_B_BYTES // 2
+            for ch in range(taps):
+                cb, tap = divmod(ch, k * k)
+                start = (nt * taps + ch) * bn * 64
                 want = wide[tap // k, tap % k, cb * 64:(cb + 1) * 64,
-                            nt * k1.GEMM_N:(nt + 1) * k1.GEMM_N].T  # (n, k)
+                            nt * bn:(nt + 1) * bn].T  # (n, k)
                 for ks in range(4):
-                    got = _desc_read(flat, start, k1.GEMM_N, ks)
+                    got = _desc_read(flat, start, bn, ks)
                     np.testing.assert_array_equal(got, want[:, 16 * ks:16 * ks + 16])
         return
     elem = dtype.itemsize
@@ -312,15 +332,21 @@ int main() {
     gemm_tile(p, p.tiles - 1, img, y0, x0, nt);
     int img2, y2, x2, nt2;
     gemm_tile(p, p.tiles / 3, img2, y2, x2, nt2);
-    std::printf("%d %d %d %d %lld %d %lld %d %d %d %lld %d %d %d %d %d %d %d %d\n", p.bh, p.bw,
-                p.tiles_y, p.tiles_x, p.m_tiles, p.n_tiles, p.tiles, p.n_cb, p.chunks, p.slots,
-                p.smem, img, y0, x0, nt, img2, y2, x2, nt2);
+    FirstPlan f = first_plan(B, oh, ow, K, cin, C);
+    std::printf("%d %d %d %d %d %d %lld %d %lld %d %d %d %d %d %d %d %d %lld %d %d %d %d %d %d "
+                "%d %d %d %d %lld %lld %d %lld %lld %lld\n", p.bm, p.bn, p.bh, p.bw,
+                p.tiles_y, p.tiles_x, p.m_tiles, p.n_tiles, p.tiles, p.n_cb, p.chunks, p.taps,
+                p.box_w, p.a_tx, p.a_bytes, p.b_bytes, p.slots, p.smem, img, y0, x0, nt, img2,
+                y2, x2, nt2, f.groups, f.per_block, f.items,
+                f.smem, (int)staged_takes(cin, C), staged_stage_ps(B, oh + K - 1, ow + K - 1, K,
+                cin, C), staged_pass_ps(B, oh + 4, ow + 4, cin, C),
+                fused_pass_ps(B, 1234567LL + C));
   }
 }
 """
 
-_PLAN_KEYS = ("bh", "bw", "tiles_y", "tiles_x", "m_tiles", "n_tiles", "tiles", "n_cb", "chunks",
-              "slots", "smem")
+_PLAN_KEYS = ("bm", "bn", "bh", "bw", "tiles_y", "tiles_x", "m_tiles", "n_tiles", "tiles",
+              "n_cb", "chunks", "taps", "box_w", "a_tx", "a_bytes", "b_bytes", "slots", "smem")
 
 
 def _staged_plan_cases():
@@ -334,6 +360,20 @@ def _staged_plan_cases():
         cases.append((int(rng.integers(1, 9)), int(rng.integers(1, 300)),
                       int(rng.integers(1, 300)), int(rng.choice([1, 3])),
                       16 * int(rng.integers(1, 80)), 16 * int(rng.integers(1, 300))))
+    # the 256-fmap down and up passes' stages and the 64-fmap model's, at
+    # both tile batches, then random narrow shapes: 64 output channels or
+    # fewer, inputs of fewer than 8 channels
+    for B in (16, 128):
+        cases += [(B, 250, 250, 3, 1, 256), (B, 250, 250, 1, 256, 256),
+                  (B, 248, 248, 3, 256, 256), (B, 238, 238, 3, 1024, 64),
+                  (B, 238, 238, 1, 64, 64), (B, 236, 236, 3, 64, 64),
+                  (B, 250, 250, 3, 1, 64), (B, 122, 122, 3, 64, 192),
+                  (B, 238, 238, 3, 256, 64)]
+    for _ in range(40):
+        cases.append((int(rng.integers(1, 9)), int(rng.integers(1, 300)),
+                      int(rng.integers(1, 300)), int(rng.choice([1, 3])),
+                      int(rng.choice([1, 2, 3, 5, 8, 24, 64, 136])),
+                      8 * int(rng.integers(1, 9))))
     return cases
 
 
@@ -356,52 +396,90 @@ def staged_plan_binary(tmp_path_factory):
 
 
 def test_staged_plan_mirror_equals_the_source(staged_plan_binary):
-    """``staged_plan`` and ``staged_tile`` against a g++ build of the
-    source's ``gemm_plan`` and ``gemm_tile`` (the last tile and one a third
-    of the way through the walk)."""
-    assert len(staged_plan_binary) > 60
+    """``staged_plan``, ``staged_tile`` (the last tile and one a third of
+    the way through the walk), ``first_plan``, ``staged_takes`` and the
+    cost model (``staged_stage_ps``, ``staged_pass_ps``, ``fused_pass_ps``)
+    against a g++ build of the source's lines."""
+    assert len(staged_plan_binary) > 100
     for c, got in staged_plan_binary.items():
+        B, oh, ow, k, c_in, ch = c
         plan = k1.staged_plan(*c)
         want = [plan[key] for key in _PLAN_KEYS]
         want += [*k1.staged_tile(plan, plan["tiles"] - 1), *k1.staged_tile(plan, plan["tiles"] // 3)]
+        f = k1.first_plan(*c)
+        want += [f["groups"], f["per_block"], f["items"], f["smem"], int(k1.staged_takes(c_in, ch)),
+                 k1.staged_stage_ps(B, oh + k - 1, ow + k - 1, k, c_in, ch),
+                 k1.staged_pass_ps(B, oh + 4, ow + 4, c_in, ch),
+                 k1.fused_pass_ps(B, 1234567 + ch)]
         assert got == want, c
 
 
 @pytest.mark.parametrize("B,oh,ow,k,c_in,c", _staged_plan_cases()[:9] + [
-    (1, 62, 62, 3, 256, 4640), (2, 11, 11, 3, 80, 304), (1, 3, 122, 1, 64, 256)])
+    (1, 62, 62, 3, 256, 4640), (2, 11, 11, 3, 80, 304), (1, 3, 122, 1, 64, 256),
+    (16, 238, 238, 3, 1024, 64), (2, 11, 11, 3, 80, 48), (1, 1, 256, 1, 16, 64),
+    (3, 37, 300, 3, 8, 24)])
 def test_staged_plan_formulas(B, oh, ow, k, c_in, c):
-    """The plan against its formulas: the ring's slots of A (16 KB, one TMA
-    box of 128 pixels x 64 channels) and B (32 KB, 256 columns x 64 K) fill
-    what the 64 KB output tile, the barriers and the alignment slack leave
-    of 227 KB; the box pads the grid least; the walk's tiles cover every
-    (image, box, n-tile) once."""
+    """The plan against its formulas: the tile is 128 pixels x 256 channels,
+    or two rows of 128 pixels x 64 channels where the stage has 64 output
+    channels or fewer; the ring's slots of A (one TMA box of the tile's
+    pixels x 64 channels; at 64 columns k - 1 pixels wider, for a tap row's
+    k taps) and B (the tile's columns x 64 K a tap) fill what the output
+    tile, the barriers and the alignment slack leave of 227 KB; the box pads
+    the grid least; the walk's tiles cover every (image, box, n-tile)
+    once."""
     p = k1.staged_plan(B, oh, ow, k, c_in, c)
-    assert k1.GEMM_A_BYTES == 128 * 64 * 2 and k1.GEMM_B_BYTES == 256 * 64 * 2
-    assert p["slots"] == 3 and p["smem"] == 1024 + 65536 + 128 + 3 * 49152 == 214144
-    assert p["smem"] <= k1.MAX_SHARED_BYTES < p["smem"] + k1.GEMM_SLOT_BYTES
-    assert p["bh"] * p["bw"] == k1.GEMM_M and p["bh"] in (1, 2, 4, 8)
+    bm, bn = p["bm"], p["bn"]
+    assert (bm, bn) == ((256, 64) if c <= 64 else (128, 256))
+    taps = k if bn == 64 else 1
+    assert (p["taps"], p["box_w"]) == (taps, p["bw"] + taps - 1)
+    assert p["a_tx"] == p["bh"] * p["box_w"] * 128 and p["b_bytes"] == taps * bn * 128
+    assert p["a_bytes"] % 1024 == 0 and 0 <= p["a_bytes"] - p["a_tx"] < 1024
+    slot = p["a_bytes"] + p["b_bytes"]
+    assert (p["slots"], p["smem"]) == {
+        (256, 1): (3, 1024 + 65536 + 128 + 3 * 49152),
+        (64, 1): (4, 1024 + 32768 + 128 + 4 * 40960),
+        (64, 3): (3, 1024 + 32768 + 128 + 3 * (33792 + 24576))}[(bn, taps)]
+    assert p["smem"] <= k1.MAX_SHARED_BYTES < p["smem"] + slot
+    assert p["bh"] * p["bw"] == bm and p["bh"] in (1, 2, 4, 8)
     area = p["tiles_y"] * p["bh"] * p["tiles_x"] * p["bw"]
-    assert all(area <= -(-oh // h) * h * -(-ow // (128 // h)) * (128 // h) for h in (1, 2, 4, 8))
+    if bn == 64:
+        assert (p["bh"], p["bw"]) == (2, 128)
+    else:
+        assert all(area <= -(-oh // h) * h * -(-ow // (bm // h)) * (bm // h)
+                   for h in (1, 2, 4, 8))
     assert p["tiles_y"] * p["bh"] >= oh > (p["tiles_y"] - 1) * p["bh"]
     assert p["tiles_x"] * p["bw"] >= ow > (p["tiles_x"] - 1) * p["bw"]
     assert p["m_tiles"] == B * p["tiles_y"] * p["tiles_x"]
-    assert p["n_tiles"] == -(-c // 256) and p["tiles"] == p["m_tiles"] * p["n_tiles"]
-    assert p["n_cb"] == -(-c_in // 64) and p["chunks"] == k * k * p["n_cb"]
+    assert p["n_tiles"] == -(-c // bn) and p["tiles"] == p["m_tiles"] * p["n_tiles"]
+    assert p["n_cb"] == -(-c_in // 64) and p["chunks"] * taps == k * k * p["n_cb"]
     if p["tiles"] <= 2000:
         seen = {k1.staged_tile(p, t) for t in range(p["tiles"])}
         assert len(seen) == p["tiles"]
         assert {s[3] for s in seen} == set(range(p["n_tiles"]))
         assert max(s[0] for s in seen) == B - 1
+        # the boxes of one n-tile cover every output pixel exactly once
+        hits = np.zeros((B, p["tiles_y"] * p["bh"], p["tiles_x"] * p["bw"]), int)
+        for img, y0, x0, nt in seen:
+            if nt == 0:
+                hits[img, y0:y0 + p["bh"], x0:x0 + p["bw"]] += 1
+        assert (hits == 1).all()
 
 
 def test_staged_tiles_counts_the_four_stages():
     """``k1.staged_tiles`` of the 256-fmap bottom pass (tile batch 16): three
     stages on the 122^2 grid and one on 120^2, one 1 x 128 box a row, three
-    n-tiles of 768 columns."""
-    assert k1.staged_tiles((16, 124, 124, 256), 768) == 3 * 16 * 122 * 3 + 16 * 120 * 3
-    assert k1.staged_tiles((16, 124, 124, 256), 768) == sum(
+    n-tiles of 768 columns. The down pass: its first stage's pixels on the
+    CUDA cores (``k1.first_pixels``), then two 1 x 128 boxes a row; the up
+    pass: 64-column tiles of two rows of 128 (``k1.staged_tiles_n64``)."""
+    work = k1.staged_work((16, 124, 124, 256), 768)
+    assert work == {"k1.staged_tiles": 3 * 16 * 122 * 3 + 16 * 120 * 3}
+    assert work["k1.staged_tiles"] == sum(
         k1.staged_plan(16, s, s, k, ci, 768)["tiles"]
         for s, k, ci in ((122, 3, 256), (122, 1, 768), (122, 1, 768), (120, 3, 768)))
+    assert k1.staged_work((16, 252, 252, 1), 256) == {
+        "k1.first_pixels": 16 * 250 * 250, "k1.staged_tiles": 2 * 16 * 250 * 2 + 16 * 248 * 2}
+    assert k1.staged_work((16, 240, 240, 1024), 64) == {
+        "k1.staged_tiles_n64": 3 * 16 * 119 * 2 + 16 * 118 * 2}
 
 
 def _sw_tile(box):
@@ -428,57 +506,82 @@ def _tma_box(a, img, y0, x0, c0, bh, bw, bc):
 
 def _emulate_persistent_stage(x, w, b):
     """The persistent kernel's data path in float64 on bf16 values: for each
-    tile of the walk and each chunk, the slot's A (the tap-shifted TMA box,
-    swizzled) and B (the pack's chunk), each warpgroup's four k steps read
-    through the descriptors; then the epilogue (bias, ReLU, bf16) into the
-    warpgroup's four swizzled 64 x 64 tiles and the TMA stores of those
-    boxes, clipped at the output's edge."""
+    tile of the walk and each chunk, the slot's input (the tap-shifted TMA
+    box of the tile's ``bm`` pixels, swizzled) and weights (the pack's chunk
+    of ``bn`` columns), each warpgroup's four k steps on its ``bm / 2``
+    pixels read through the descriptors (the weights as B at 256 columns,
+    as A at 64); then the epilogue (bias, ReLU, bf16) into the warpgroup's
+    swizzled 64-pixel x 64-channel tiles and the TMA stores of those boxes,
+    clipped at the output's edge."""
     B, H, W, c_in = x.shape
     k, c = w.shape[0], w.shape[-1]
     oh, ow = H - k + 1, W - k + 1
     p = k1.staged_plan(B, oh, ow, k, c_in, c)
+    bm, bn = p["bm"], p["bn"]
+    mt, ns = bm // 128, bn // 64
     packed = k1.pack_stage_persistent(w).float().reshape(-1).numpy().astype(np.float64)
+    assert packed.size * 2 == p["n_tiles"] * p["chunks"] * p["b_bytes"]
     xs = x.float().numpy().astype(np.float64)
     bias = b.float().numpy().astype(np.float64)
     out = np.full((B, oh, ow, c), np.nan)
     sw = min(p["bw"], 64)
     for t in range(p["tiles"]):
         img, y0, x0, nt = k1.staged_tile(p, t)
-        acc = np.zeros((2, 64, 256))
+        acc = np.zeros((2, bm // 2, bn))  # a warpgroup's pixels x columns
         for ch in range(p["chunks"]):
-            tap, cb = divmod(ch, p["n_cb"])
-            box = _tma_box(xs, img, y0 + tap // k, x0 + tap % k, 64 * cb, p["bh"], p["bw"], 64)
-            slot = np.concatenate([_sw_tile(box.reshape(128, 64)),
-                                   packed[(nt * p["chunks"] + ch) * 16384:][:16384]])
+            if bn == 256:  # 64 channels at one tap
+                cb, tap = divmod(ch, k * k)
+                dy, dx = divmod(tap, k)
+            else:  # 64 channels at one tap row: the box k - 1 pixels wider
+                (cb, dy), dx = divmod(ch, k), 0
+            box = _tma_box(xs, img, y0 + dy, x0 + dx, 64 * cb, p["bh"], p["box_w"], 64)
+            assert box.size * 2 == p["a_tx"]
+            room = np.zeros(p["a_bytes"] // 2)
+            room[:box.size] = _sw_tile(box.reshape(-1, 64))
+            weights = packed[(nt * p["chunks"] + ch) * p["b_bytes"] // 2:][:p["b_bytes"] // 2]
+            slot = np.concatenate([room, weights])
             for wg in range(2):
                 for ks in range(4):
-                    a = _desc_read(slot, wg * 4096, 64, ks)       # (64 pixels, 16)
-                    bm = _desc_read(slot, 8192, 256, ks)          # (256 columns, 16)
-                    acc[wg] += a @ bm.T
+                    if bn == 256:  # m64n256k16: the pixels as A, the weights as B
+                        wmat = _desc_read(slot, p["a_bytes"] // 2, bn, ks)  # (256 columns, 16)
+                        xmat = _desc_read(slot, wg * 64 * 64, 64, ks)      # (64 pixels, 16)
+                        acc[wg] += xmat @ wmat.T
+                        continue
+                    for t in range(p["taps"]):  # m64n128k16: the weights as A, the pixels as B
+                        wmat = _desc_read(slot, p["a_bytes"] // 2 + t * 64 * 64, 64, ks)
+                        # the warpgroup's row of the box from pixel t on: a
+                        # start inside the swizzle's 8-row period
+                        xmat = _desc_read(slot, (wg * p["box_w"] + t) * 64, 128, ks)
+                        acc[wg] += (wmat @ xmat.T).T
+        cols = nt * bn + np.arange(bn)
+        bcol = np.where(cols < c, bias[np.minimum(cols, c - 1)], 0.0)
         for wg in range(2):
-            cols = nt * 256 + np.arange(256)
-            bcol = np.where(cols < c, bias[np.minimum(cols, c - 1)], 0.0)
-            v = torch.from_numpy(np.maximum(acc[wg] + bcol, 0.0)).to(torch.bfloat16)
-            v = v.double().numpy()
-            staging = np.zeros(4 * 4096)
-            q = np.arange(64)[:, None]
-            col = np.arange(256)[None, :]
-            staging[(col // 64) * 4096 + q * 64 + (((col % 64) // 8) ^ (q % 8)) * 8 + col % 8] = v
-            sx = 64 * wg if p["bw"] > 64 else 0
-            sy = 0 if p["bw"] > 64 else wg * (64 // sw)
-            for s in range(4):
-                c0 = nt * 256 + 64 * s
-                if c0 >= c:
-                    continue
-                sub = staging[s * 4096:(s + 1) * 4096]
-                qq = np.arange(64)[:, None]
-                e = np.arange(64)[None, :]
-                tile = sub[qq * 64 + ((e // 8) ^ (qq % 8)) * 8 + e % 8]  # (pixel, channel)
-                for i in range(64):
-                    yy, xx = y0 + sy + i // sw, x0 + sx + i % sw
-                    if yy < oh and xx < ow:
-                        n = min(64, c - c0)
-                        out[img, yy, xx, c0:c0 + n] = tile[i, :n]
+            for mi in range(mt):
+                v = np.maximum(acc[wg, 64 * mi:64 * mi + 64] + bcol, 0.0)
+                v = torch.from_numpy(v).to(torch.bfloat16)
+                v = v.double().numpy()
+                staging = np.zeros(ns * 4096)
+                q = np.arange(64)[:, None]
+                col = np.arange(bn)[None, :]
+                staging[(col // 64) * 4096 + q * 64 + (((col % 64) // 8) ^ (q % 8)) * 8
+                        + col % 8] = v
+                i = wg * mt + mi
+                sx = (64 * i) % p["bw"] if p["bw"] >= 64 else 0
+                sy = (64 * i) // p["bw"] if p["bw"] >= 64 else i * (64 // sw)
+                for s in range(ns):
+                    c0 = nt * bn + 64 * s
+                    if c0 >= c:
+                        continue
+                    sub = staging[s * 4096:(s + 1) * 4096]
+                    qq = np.arange(64)[:, None]
+                    e = np.arange(64)[None, :]
+                    tile = sub[qq * 64 + ((e // 8) ^ (qq % 8)) * 8 + e % 8]  # (pixel, channel)
+                    for j in range(64):
+                        yy, xx = y0 + sy + j // sw, x0 + sx + j % sw
+                        if yy < oh and xx < ow:
+                            n = min(64, c - c0)
+                            assert np.isnan(out[img, yy, xx, c0:c0 + n]).all()  # stored once
+                            out[img, yy, xx, c0:c0 + n] = tile[j, :n]
     return out, p
 
 
@@ -486,9 +589,12 @@ def _emulate_persistent_stage(x, w, b):
     (2, 13, 13, 3, 80, 304),     # 8 x 16 boxes, a partial channel block and n-tile
     (1, 3, 124, 1, 64, 256),     # 1 x 128 boxes, a 1 x 1 stage
     (1, 37, 62, 3, 64, 96),      # 2 x 64 boxes clipped at the right and bottom edge
+    (2, 13, 13, 3, 80, 48),      # 64-column tiles, clipped: 48 of 64 columns stored
+    (1, 2, 128, 1, 16, 64),      # 64-column tiles: one 2 x 128 box, 16 of 64 channels read
+    (1, 7, 133, 3, 136, 40),     # 64-column tiles clipped at both edges, three channel blocks
 ])
 def test_persistent_stage_data_path_gives_the_convolution(B, H, W, k, c_in, c):
-    """The emulated data path of ``conv_stage_kernel_persistent`` writes
+    """The emulated data path of ``conv_stage_kernel_persistent<BN>`` writes
     every output element once, and gives the stage (convolution of the bf16
     values in float64, f32 bias, ReLU, one rounding to bf16) up to the bf16
     rounding of sums taken in another order."""
@@ -502,5 +608,67 @@ def test_persistent_stage_data_path_gives_the_convolution(B, H, W, k, c_in, c):
     ref = F.conv2d(x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
                    b.double()).relu().to(torch.bfloat16).double().permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(got, ref, rtol=2 ** -7, atol=1e-6)
-    assert {(1, 3, 124): (1, 128), (2, 13, 13): (8, 16), (1, 37, 62): (2, 64)}[(B, H, W)] == (
+    assert {(1, 3, 124): (1, 128), (2, 13, 13): (8, 16) if c > 64 else (2, 128),
+            (1, 37, 62): (2, 64), (1, 2, 128): (2, 128), (1, 7, 133): (2, 128)}[(B, H, W)] == (
         p["bh"], p["bw"])
+
+
+def _emulate_first_stage(x, w, b, grid):
+    """``conv_stage_kernel_first``'s data path on ``grid`` blocks, in
+    float32 as the kernel computes it: each block's pixel groups in the
+    grid-stride walk (``first_plan``), a thread's 4 pixels x
+    8 channels summed in the order (dy, channel, dx) (a bf16 x bf16 product
+    is exact in float32, so each fmaf is one rounding of the sum), the f32
+    bias, ReLU, one rounding to bf16; pixels past the row read its last
+    input pixel and are not stored."""
+    B, H, W, c_in = x.shape
+    k, c = w.shape[0], w.shape[-1]
+    oh, ow = H - k + 1, W - k + 1
+    p = k1.first_plan(B, oh, ow, k, c_in, c)
+    xs, ws, bs = x.float().numpy(), w.float().numpy(), b.float().numpy()
+    out = np.full((B, oh, ow, c), np.nan, np.float32)
+    for blk in range(grid):
+        for pg in range(p["per_block"]):
+            it = blk * p["per_block"] + pg
+            while it < p["items"]:
+                # the kernel's decode of pixel group it: (image, row, x0)
+                r, xq = divmod(it, -(-ow // k1.FIRST_PIX))
+                (img, y), x0 = divmod(r, oh), xq * k1.FIRST_PIX
+                acc = np.zeros((k1.FIRST_PIX, c), np.float32)
+                for dy in range(k):
+                    for ci in range(c_in):
+                        for dx in range(k):
+                            for q in range(k1.FIRST_PIX):
+                                v = xs[img, y + dy, min(x0 + q + dx, W - 1), ci]
+                                acc[q] = acc[q] + v * ws[dy, dx, ci]
+                for q in range(k1.FIRST_PIX):
+                    if x0 + q < ow:
+                        assert np.isnan(out[img, y, x0 + q]).all()  # each pixel once
+                        v = torch.from_numpy(np.maximum(acc[q] + bs, np.float32(0)))
+                        out[img, y, x0 + q] = v.bfloat16().float().numpy()
+                it += grid * p["per_block"]
+    return out, p
+
+
+@pytest.mark.parametrize("B,H,W,c_in,c,grid", [
+    (2, 9, 11, 1, 256, 3),    # the 256-fmap first stage's widths: a warp a pixel group
+    (1, 12, 13, 3, 64, 2),    # three input channels, 64 outputs: a ragged last group
+    (2, 7, 10, 5, 24, 1),     # 24 outputs (3 groups of 8): 85 pixel groups a block
+])
+def test_first_stage_covers_every_pixel_once_and_gives_the_convolution(B, H, W, c_in, c, grid):
+    """The CUDA-core stage of the bf16 staged route (fewer than 8 input
+    channels): its blocks' pixel groups cover every output pixel exactly
+    once, and give the stage up to the bf16 rounding of sums taken in
+    another order."""
+    rng = np.random.default_rng(H * W + c)
+    x = torch.from_numpy(rng.random((B, H, W, c_in)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((3, 3, c_in, c)).astype(np.float32)
+                         / np.sqrt(9 * c_in)).bfloat16()
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.1)
+    got, p = _emulate_first_stage(x, w, b, grid)
+    assert not np.isnan(got).any()
+    assert p["groups"] * p["per_block"] <= k1.FIRST_THREADS and p["per_block"] >= 1
+    assert p["smem"] == 4 * w.numel() == 4 * k1.pack_stage_bf16(w).numel()
+    ref = F.conv2d(x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+                   b.double()).relu().to(torch.bfloat16).double().permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, ref, rtol=2 ** -7, atol=1e-6)
