@@ -658,13 +658,19 @@ def _(x, w0, w1, w2, w3, b0, b1, b2, b3, compute_dtype):
                 B, H, W, c_in, c_out, tile, tile, _DTYPE_CODES[compute_dtype], stream,
             )
     kernels.check_launch(rc, "conv_pass_2d")
+    kernels.account(_account_launch, tuple(x.shape), c_out, route, compute_dtype)
+    return out
+
+
+def _account_launch(shape, c_out: int, route: str, compute_dtype) -> None:
+    """One launch of K1 on an input of ``shape``: its launch count and, on
+    the bf16 staged route, the counters of its work."""
     kernels.count_launch(conv_pass_2d)
     if route == "staged" and compute_dtype == torch.bfloat16:
-        work = staged_work(x.shape, c_out)
+        work = staged_work(shape, c_out)
         if "k1.staged_tiles" in work:
             count("k1.staged_tiles", work["k1.staged_tiles"])
         if "k1.staged_tiles_n64" in work:
             count("k1.staged_tiles_n64", work["k1.staged_tiles_n64"])
         if "k1.first_pixels" in work:
             count("k1.first_pixels", work["k1.first_pixels"])
-    return out

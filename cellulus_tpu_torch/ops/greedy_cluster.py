@@ -28,18 +28,17 @@ worker threads while predict keeps launching in the calling thread.
 
 from __future__ import annotations
 
-import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..utils.kernels import CAPTURE_LOCK
 from ..utils.profiling import span
 from .mean_shift import add_coordinate_grid
 
 # iterations per batch: the host reads the done flag once per batch
 ITERATIONS_PER_BATCH = 64
-_CAPTURE_LOCK = threading.Lock()
 
 
 class _Loop:
@@ -184,8 +183,8 @@ def greedy_cluster(
             # (predict's tile batches) allocate and sync while this one
             # captures; on `side`, a stream of `dev` (torch's default capture
             # stream belongs to whichever device was current at its first use)
-            with _CAPTURE_LOCK, torch.cuda.graph(graph, stream=side,
-                                                 capture_error_mode="thread_local"):
+            with CAPTURE_LOCK, torch.cuda.graph(graph, stream=side,
+                                                capture_error_mode="thread_local"):
                 loop.batch(n)
             loop.reset()
             run = graph.replay

@@ -14,6 +14,7 @@ port on machines with no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,6 +41,12 @@ BUILD_LOG: Dict[str, str] = {}
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _count_lock = threading.Lock()
+# the bookkeeping a thread defers while it captures a CUDA graph
+_deferred = threading.local()
+# one CUDA graph capture at a time in the process: the pipelined path
+# captures in its predict thread (``predict.py``) and in its detect workers
+# (``ops/greedy_cluster.py``)
+CAPTURE_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -113,6 +120,31 @@ def count_launch(wrapper) -> None:
     a lock makes it safe in the pipelined path's worker threads."""
     with _count_lock:
         wrapper.launches += 1
+
+
+def account(fn, *args) -> None:
+    """Call ``fn(*args)``, the host's bookkeeping of one launch (a launch
+    count, profiler counters), or, while this thread captures a CUDA graph
+    under :func:`deferred_accounts`, keep the call for the graph's replays:
+    a capture launches nothing, each replay launches what it recorded."""
+    log = getattr(_deferred, "log", None)
+    if log is None:
+        fn(*args)
+    else:
+        log.append((fn, args))
+
+
+@contextlib.contextmanager
+def deferred_accounts():
+    """Collect the :func:`account` calls this thread makes inside the block
+    into the list it yields, instead of making them; a caller that replays a
+    graph captured in the block makes them after each replay."""
+    log = []
+    _deferred.log = log
+    try:
+        yield log
+    finally:
+        _deferred.log = None
 
 
 def check_launch(rc: int, what: str) -> None:

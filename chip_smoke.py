@@ -160,6 +160,11 @@ Phases, each failing the run (non-zero exit) if it fails:
     ``train()`` in dense chunks); ``[dp]`` (two gloo ranks on ``cuda:0``
     against one rank on the whole batch; one NCCL rank whose K = 4 graph
     holds the all_reduce, against eager steps and against no group);
+    ``[graph-predict]`` after ``[m13-predict]`` (a sample that is one tile
+    batch as one CUDA graph replay, at examples/real-data's model on 256^2
+    images: bit-equal to the eager path, one capture over two pipelined
+    calls, weights loaded in place followed, a profiler started after the
+    capture sees the replays' kernels);
 17. the kernels line (JSON, one row per kernel and input type; K1 at both
     widths and at cin = 3, with its launches by path (main, pipelined,
     sweep, ckpt, export, mc, m13-predict); K2 at Ci = 3 and K2's
@@ -179,6 +184,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import importlib.util
 import json
 import math
@@ -2684,6 +2690,210 @@ def _warp_check(device):
     return worst
 
 
+# [graph-predict]: the benchmark's 2D image, 4 output tiles of 236^2 at crop
+# 252, one tile batch
+GRAPH_SIZE = 256
+GRAPH_SAMPLES = 3
+
+
+def phase_graph_predict(work):
+    """``[graph-predict]``: ``predict_sample``'s graph path (a sample held in
+    memory whose tile grid is one tile batch, on one card: the shape's
+    first sample eager, its second captured, the rest replayed), at
+    examples/real-data's 256-fmap model in bf16 on GRAPH_SAMPLES synthetic
+    256^2 images: (1) each sample of 2 seeds bit-equal to the eager path
+    (the same sample through a streaming ``source``, which stays eager),
+    one capture, K1's launches as many as the forwards run; (2) with a new
+    model of the same weights (the first one's graph gone with it), two
+    ``infer_pipelined`` calls capture once and their embeddings equal (1)'s;
+    (3) after ``load_state_dict`` of other weights, a replay equals the
+    eager path with them; (4) a profiler started after the capture records
+    the replay's kernels, K1's among them; (5) an eager forward (a
+    streaming sample) drops the graph, so that both fit, and the next two
+    samples held in memory run eagerly, then captured. Host ms a sample,
+    graphed and eager, and the peak memory."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cellulus_tpu_torch import predict as predict_mod
+    from cellulus_tpu_torch.io.regions import read_reflect_region
+    from cellulus_tpu_torch.pipeline import infer_pipelined
+    from cellulus_tpu_torch.utils.profiling import counters
+
+    graph_dir = os.path.join(work, "graph")
+    os.makedirs(graph_dir)
+    container = write_blob_container(os.path.join(graph_dir, "data.zarr"), GRAPH_SAMPLES,
+                                     GRAPH_SIZE, seed=23)
+    checkpoint = os.path.join(graph_dir, "weights.pth")
+    save_random_checkpoint(checkpoint, seed=29, **MODEL_WIDE)
+    raw_ds = zarr.open(container, "r")["raw"]
+    nf = normalization_factor_for(raw_ds.dtype)
+    raws = [np.asarray(raw_ds[s], np.float32) for s in range(GRAPH_SAMPLES)]
+    spatial = raws[0].shape[1:]
+    ic = infer_config(container, checkpoint, MODEL_WIDE, precision="bfloat16", pipelined=True,
+                      bandwidth=0.5 * OBJECT_SIZE,
+                      min_size=int(0.1 * np.pi * OBJECT_SIZE**2 / 4)).inference_config
+    dtype = torch.bfloat16
+
+    def model():
+        net = UNet(1, 2, **MODEL_WIDE)
+        load_checkpoint(checkpoint, net)
+        return net.to(DEVICE).eval()
+
+    def eager(net, s, settings):
+        def source(origin, size):
+            return read_reflect_region(
+                lambda lo, hi: raws[s][(slice(None),) + tuple(slice(*b) for b in zip(lo, hi))],
+                spatial, origin, size) * nf
+        return predict_sample(net, None, settings, nf, s, DEVICE, dtype, source=source,
+                              spatial=spatial)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def profiled(fn):
+        """``fn()`` while a CPU-only profiler records (the counters count
+        only then); returns its result and the counters it added."""
+        reset_perf()
+        with profile(activities=[ProfilerActivity.CPU]):
+            out = fn()
+        return out, counters()
+
+    # (1) bit-equal to eager, sample by sample, two seeds; the eager runs
+    # first: a forward's cached blocks (41.5 GiB reserved at a 28.4 GiB peak)
+    # and a graph's pool do not fit on the card side by side
+    torch.cuda.reset_peak_memory_stats()
+    net = model()
+    conv_pass_2d.launches = 0
+    seeds = (0, 1)
+    wants, ms = {}, {"graphed": [], "eager": []}
+    for seed in seeds:
+        for s in range(GRAPH_SAMPLES):
+            wants[seed, s], t = timed(lambda: eager(net, s, dataclasses.replace(ic, seed=seed)))
+            ms["eager"].append(t)
+    torch.cuda.empty_cache()
+
+    def run_seeds():
+        for seed in seeds:
+            settings = dataclasses.replace(ic, seed=seed)
+            for s in range(GRAPH_SAMPLES):
+                got, t = timed(lambda: predict_sample(net, raws[s], settings, nf, s, DEVICE,
+                                                      dtype))
+                if not np.array_equal(got, wants[seed, s]):
+                    fail(f"[graph-predict] seed {seed} sample {s}: the graph path differs from "
+                         f"eager, max abs {np.abs(got - wants[seed, s]).max():.3g}")
+                ms["graphed"].append(t)
+
+    _, counted = profiled(run_seeds)
+    n = 2 * GRAPH_SAMPLES
+    want_counts = {"predict.graph_captures": 1, "predict.graph_replays": n - 1,
+                   "predict.eager_batches": 1}
+    got_counts = {k: counted.get(k, 0) for k in want_counts}
+    if got_counts != want_counts:
+        fail(f"[graph-predict] (1) counters {got_counts}, expected {want_counts}")
+    # 3 passes a forward: the eager ones, the warm-up before the capture, the replays
+    forwards = n + 1 + 1 + (n - 1)
+    if conv_pass_2d.launches != 3 * forwards:
+        fail(f"[graph-predict] (1) K1 launched {conv_pass_2d.launches} times, expected "
+             f"{3 * forwards}")
+
+    # (2) a new model: the first one's graph goes with it; two pipelined calls
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    if len(predict_mod._GRAPHS):
+        fail("[graph-predict] (2) a deleted model's graph is still held")
+    # (3)'s yardstick first, while no graph holds memory: other weights, eager
+    other = random_unet(31, **MODEL_WIDE).state_dict()
+    net = model()
+    net.load_state_dict(other)
+    want_other = eager(net, 0, ic)
+    net = model()
+    torch.cuda.empty_cache()
+
+    def pipelined():
+        outs = []
+        for call in range(2):
+            settings = copy.deepcopy(ic)
+            out = os.path.join(graph_dir, f"out-{call}.zarr")
+            _route(settings, container, out)
+            with logged(os.path.join(graph_dir, "pipelined.log")):
+                infer_pipelined(net, settings, None, DEVICE, dtype)
+            outs.append(zarr.open(out, "r")["embeddings"][...])
+        return outs
+
+    outs, counted = profiled(pipelined)
+    want_counts = {"predict.graph_captures": 1, "predict.graph_replays": 2 * GRAPH_SAMPLES - 1,
+                   "predict.eager_batches": 1}
+    got_counts = {k: counted.get(k, 0) for k in want_counts}
+    if got_counts != want_counts:
+        fail(f"[graph-predict] (2) counters over two infer_pipelined calls {got_counts}, "
+             f"expected {want_counts}")
+    for call, out in enumerate(outs):
+        for s in range(GRAPH_SAMPLES):
+            if not np.array_equal(out[s], wants[ic.seed, s]):
+                fail(f"[graph-predict] (2) call {call} sample {s}: embeddings differ from (1)")
+
+    # (3) other weights loaded in place: the replay reads them
+    net.load_state_dict(other)
+    got, counted = profiled(lambda: predict_sample(net, raws[0], ic, nf, 0, DEVICE, dtype))
+    if counted.get("predict.graph_replays", 0) != 1 or "predict.graph_captures" in counted:
+        fail(f"[graph-predict] (3) no replay of the graph after load_state_dict: {counted}")
+    if not np.array_equal(got, want_other):
+        fail(f"[graph-predict] (3) the replay after load_state_dict differs from eager with the "
+             f"new weights, max abs {np.abs(got - want_other).max():.3g}")
+    if np.array_equal(got, wants[ic.seed, 0]):
+        fail("[graph-predict] (3) the new weights changed nothing")
+
+    # (4) a profiler started after the capture sees the replay's kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        predict_sample(net, raws[1], ic, nf, 1, DEVICE, dtype)
+        torch.cuda.synchronize()
+    path = os.path.join(graph_dir, "replay-trace.json")
+    prof.export_chrome_trace(path)
+    kernels_seen = [e["name"] for e in trace_events(path) if e.get("cat") == "kernel"]
+    k1_seen = sum("conv_stage_kernel" in k or "conv_pass_kernel" in k for k in kernels_seen)
+    if k1_seen != 12:
+        fail(f"[graph-predict] (4) the profiler saw {k1_seen} of the replay's 12 K1 stage "
+             f"kernels ({len(kernels_seen)} kernels in all)")
+    # (5) an eager forward of the model drops its graph (their memory does
+    # not fit side by side); the next run of samples held in memory starts
+    # eagerly and captures again
+    refs = [eager(net, s, ic) for s in (1, 2)]
+
+    def after_eager():
+        return [predict_sample(net, raws[s], ic, nf, s, DEVICE, dtype) for s in (1, 2)]
+
+    gots, counted = profiled(after_eager)
+    want_counts = {"predict.graph_captures": 1, "predict.graph_replays": 1,
+                   "predict.eager_batches": 1}
+    got_counts = {k: counted.get(k, 0) for k in want_counts}
+    if got_counts != want_counts:
+        fail(f"[graph-predict] (5) counters after an eager forward {got_counts}, expected "
+             f"{want_counts}")
+    if not all(np.array_equal(g, r) for g, r in zip(gots, refs)):
+        fail("[graph-predict] (5) the samples after an eager forward differ from eager")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    graphed = ms["graphed"][2:]  # the replays: not the first sighting, not the capture
+    print(f"[graph-predict] examples/real-data's model, bf16, {GRAPH_SAMPLES} x {GRAPH_SIZE}^2 "
+          f"(4 tiles, one tile batch): graphed bit-equal to eager on 2 seeds, one capture over "
+          f"two infer_pipelined calls, a replay after load_state_dict bit-equal to eager with "
+          f"the new weights, the profiler saw {len(kernels_seen)} kernels of a replay "
+          f"({k1_seen} of K1), an eager forward dropped the graph; ms a sample, replay {np.median(graphed):.1f} (min "
+          f"{min(graphed):.1f}), eager {np.median(ms['eager']):.1f} (min {min(ms['eager']):.1f}), "
+          f"first sighting {ms['graphed'][0]:.1f}, capture and replay {ms['graphed'][1]:.1f}; "
+          f"peak memory {peak:.2f} GB", flush=True)
+
+
 def phase_3d_elastic(work):
     """``[3d-elastic]``: tests/test_quality_3d_gate.py's bundle as written
     (on-device elastic, device pairs, all_dims, density 0.025, lr 4e-4, 60
@@ -3429,6 +3639,14 @@ def phase_stream(work):
     f["raw"].attrs.update({"axis_names": ["s", "c", "z", "y", "x"], "resolution": [1, 1, 1]})
     save_random_checkpoint(os.path.join(path, "weights.pth"), 42, num_spatial_dims=3,
                            **MODEL_3D)
+    # the runs share the card with this process: hand back what its allocator
+    # caches, the memory pools of dead models' predict graphs among it
+    reserved = torch.cuda.memory_reserved() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[stream] this process: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{reserved:.2f} GiB reserved before its cache was emptied, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} after", flush=True)
     runs = {}
     for mode in ("stream", "memory"):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--stream", mode, path],
@@ -4360,6 +4578,8 @@ def main() -> None:
         clock("wide-main")
         m13_launches = phase_m13_predict(work)
         clock("m13-predict")
+        phase_graph_predict(work)
+        clock("graph-predict")
         trace_launches, k2_trace = phase_trace(work)
         clock("trace")
         k2_bf16, k2_f32 = phase_train(work, k2[torch.bfloat16]["ms"])
